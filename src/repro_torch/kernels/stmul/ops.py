@@ -1,0 +1,163 @@
+"""Public wrappers of the stmul kernels (port of ``repro.kernels.stmul.ops``).
+
+Each function keeps the reference's signature on complex tensors with
+arbitrary trailing frequency axes, flattens them, and routes by the
+tensor's device: a CUDA tensor launches the hand-written kernel of
+``kernel.py`` (or raises), a CPU tensor runs its plain version from
+``ref.py``.  There is no fallback from one to the other.
+
+The TPU kernels needed a real/imag plane split and a ``yr + 1j*yi``
+recombination around every launch; the CUDA kernels read and write
+interleaved complex64 — the layout ``torch.fft.rfftn`` produces — so
+that traffic is gone.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.kernels.stmul import kernel as _kernel
+from repro_torch.kernels.stmul import ref as _ref
+
+Tensor = torch.Tensor
+
+_FFT_AXES = (-3, -2, -1)
+
+
+def _on_cuda(t: Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"stmul has no kernel for device {t.device}")
+
+
+def spectral_mac(xhat: Tensor, grating: Tensor, *, version: int = 2) -> Tensor:
+    """Complex channel-contracted spectral product (kernel B1).
+
+    Args:
+      xhat: (B, C, *F) complex64; grating: (O, C, *F) complex64.
+      version: 2 = Karatsuba 3-multiply (default), 1 = direct 4-multiply.
+
+    Returns (B, O, *F) complex64.
+    """
+    fshape = tuple(xhat.shape[2:])
+    B, C = xhat.shape[:2]
+    O = grating.shape[0]
+    xf = xhat.reshape(B, C, -1)
+    gf = grating.reshape(O, C, -1)
+    if _on_cuda(xf):
+        y = _kernel.spectral_mac_cuda(xf.contiguous(), gf.contiguous(), version)
+    else:
+        y = _ref.spectral_mac_ref(xf, gf, version)
+    return y.reshape((B, O) + fshape)
+
+
+def spectral_mac_grouped(
+    xhat: Tensor,
+    pool_re: Tensor,
+    pool_im: Tensor,
+    o_start: Sequence[int],
+    n_out: int,
+) -> Tensor:
+    """Pooled cross-tenant spectral MAC (kernel B2).
+
+        Ŷ[b, o, f] = Σ_c  X̂[b, c, f] · Gpool[o_start[b] + o, c, f]
+
+    Args:
+      xhat: (B, C, *F) complex64 query spectra (the mixed-tenant batch).
+      pool_re / pool_im: (ΣO, C, *F) float32 or bfloat16 arena planes.
+      o_start: B per-row first-row offsets into the arena (host ints).
+      n_out: O rows produced per query row.
+
+    Returns (B, n_out, *F) complex64.
+    """
+    fshape = tuple(xhat.shape[2:])
+    B, C = xhat.shape[:2]
+    so = pool_re.shape[0]
+    xf = xhat.reshape(B, C, -1)
+    pr = pool_re.reshape(so, C, -1)
+    pi = pool_im.reshape(so, C, -1)
+    if _on_cuda(xf):
+        y = _kernel.spectral_mac_grouped_cuda(
+            xf.contiguous(), pr.contiguous(), pi.contiguous(), o_start, n_out
+        )
+    else:
+        y = _ref.spectral_mac_grouped_ref(xf, pr, pi, o_start, n_out)
+    return y.reshape((B, int(n_out)) + fshape)
+
+
+def query_grating_pooled(
+    x: Tensor,
+    pool_re: Tensor,
+    pool_im: Tensor,
+    o_start: Sequence[int],
+    n_out: int,
+    fft_shape: tuple[int, int, int],
+    out_shape: tuple[int, int, int],
+) -> Tensor:
+    """One forward FFT over the stacked mixed-tenant batch, one grouped
+    MAC against the pooled arena, one inverse FFT, crop."""
+    xhat = torch.fft.rfftn(x, s=fft_shape, dim=_FFT_AXES)
+    yhat = spectral_mac_grouped(xhat, pool_re, pool_im, o_start, n_out)
+    y = torch.fft.irfftn(yhat, s=fft_shape, dim=_FFT_AXES)
+    return y[..., : out_shape[0], : out_shape[1], : out_shape[2]]
+
+
+def query_grating_pallas(
+    x: Tensor,
+    grating: Tensor,
+    fft_shape: tuple[int, int, int],
+    out_shape: tuple[int, int, int],
+    *,
+    version: int = 2,
+) -> Tensor:
+    """Kernel counterpart of ``spectral_conv.query_grating``: rfftn, the
+    B1 MAC, irfftn, crop.  (The name is the reference's.)"""
+    xhat = torch.fft.rfftn(x, s=fft_shape, dim=_FFT_AXES)
+    yhat = spectral_mac(xhat, grating, version=version)
+    y = torch.fft.irfftn(yhat, s=fft_shape, dim=_FFT_AXES)
+    return y[..., : out_shape[0], : out_shape[1], : out_shape[2]]
+
+
+def topk_readout(
+    vals: Tensor, gidx: Tensor, k: int, *, use_pallas: bool = True
+) -> tuple[Tensor, Tensor]:
+    """Fused detection readout (kernel B3): reduce a flattened score axis
+    to the K best (score, global position) pairs per (row, kernel).
+
+    Args:
+      vals: (B, O, L) float32 scores (padding carries −inf).
+      gidx: (L,) int32 global flat positions (``TOPK_EMPTY_IDX`` pads).
+      k: state width.
+      use_pallas: route through the readout kernel (its plain version on
+        CPU tensors); False runs the same selection as one dense
+        :func:`ref.topk_select` — both are bitwise equal.
+
+    Returns (scores, index): (B, O, k) float32 / int32.
+    """
+    k = int(k)
+    if not use_pallas:
+        return _ref.topk_select(vals, gidx.expand(vals.shape), k)
+    lead = tuple(vals.shape[:-1])
+    flat = vals.reshape(-1, vals.shape[-1])
+    if _on_cuda(flat):
+        s, ix = _kernel.topk_readout_cuda(
+            flat.to(torch.float32).contiguous(),
+            gidx.to(torch.int32).contiguous(),
+            k,
+        )
+    else:
+        s, ix = _ref.topk_readout_ref(flat, gidx, k)
+    return s.reshape(lead + (k,)), ix.reshape(lead + (k,))
+
+
+def merge_topk(states: "list[tuple[Tensor, Tensor]]", k: int) -> tuple[Tensor, Tensor]:
+    """Associative merge of top-K running states: the exact top-k of the
+    union of (scores, index) pairs, each (..., K_i) — any re-chunking or
+    permutation of the states gives a bitwise-identical result."""
+    s = torch.cat([st[0] for st in states], dim=-1)
+    i = torch.cat([st[1] for st in states], dim=-1)
+    return _ref.topk_select(s, i, int(k))
