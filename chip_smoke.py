@@ -6,8 +6,9 @@ Run from the repository root on a machine with a CUDA card:
 
 Phases, each reported on lines of its own:
 
-1. build   — compile the stmul CUDA kernels from ``src/repro_torch/
-             kernels/stmul/csrc`` with nvcc (sm_90a) and load them.
+1. build   — compile the CUDA kernels (``src/repro_torch/kernels/
+             stmul/csrc`` and ``kernels/ssd/csrc``) with nvcc for sm_90a,
+             one nvcc per library, both started together, and load them.
 2. serve   — a VideoSearchServer at the paper geometry (60x80 frames,
              four tenants of 9x1x30x40x8 kernels, 64-frame windows, 4
              windows per chunk) answers six 1024-frame requests, two
@@ -27,6 +28,22 @@ Phases, each reported on lines of its own:
              CUDA events beside its plain version, a one-call library
              yardstick and its bound (bytes at 3.35 TB/s or float32
              operations at 67 TFLOP/s, whichever is larger).
+4. lm      — mamba2-370m at its published config (48 layers, bf16,
+             random weights from a seeded generator on the card) served
+             by ``LMServer.generate``: 4 prompts x 2048 tokens then 32
+             greedy tokens, and 2 x 1000 (padded to 1024 inside the SSD)
+             then 8.  One warm-up and 5 timed calls each of prefill-only
+             and full generation; the SSD kernel's (B5) launch counter,
+             zeroed before the timed calls, must read 48 x the prefills
+             run.  B5 is held against its plain version on layer 0's SSD
+             inputs of the first batch and of its 2 x 1024 prefix (the
+             grid batch two gives it), relative L2 <= 1e-5 for y and the
+             final state, and timed like the others (no single PyTorch
+             call computes it: library "none"); its (16, 16, 16) build,
+             which ``serve --mode lm`` runs on the smoke config, is held
+             to the same limit on that config; a 2-layer float32 model
+             at full width must give the same last logits by the kernel
+             route and the plain route (relative L2 <= 1e-4).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -52,7 +69,11 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 MAC_RTOL = 1e-5
+SSD_RTOL = 1e-5
+LM_RTOL = 1e-4
 SERVE_REPS = 7  # timed calls per serving mode, after one warm-up
+LM_REPS = 5  # timed calls per LM batch and kind, after one warm-up
+LM_BATCHES = ((4, 2048, 32), (2, 1000, 8))  # (prompts, prompt tokens, new tokens)
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -84,13 +105,21 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def phase_build(kernel) -> dict:
-    info = kernel.build()
-    ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
-    print(f"build: {info['seconds']:.2f} s nvcc sm_90a -> {os.path.relpath(info['path'], ROOT)}")
-    for ln in ptxas:
-        print(f"build:   {ln}")
-    return {"seconds": info["seconds"], "ptxas": ptxas}
+def phase_build(libs: dict) -> dict:
+    """Build every kernel library at once (one nvcc each, in parallel)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(libs)) as pool:
+        futs = {name: pool.submit(mod.build) for name, mod in libs.items()}
+        infos = {name: f.result() for name, f in futs.items()}
+    report = {}
+    for name, info in infos.items():
+        ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
+        print(f"build: {name} {info['seconds']:.2f} s nvcc sm_90a -> {os.path.relpath(info['path'], ROOT)}")
+        for ln in ptxas:
+            print(f"build:   {ln}")
+        report[name] = {"seconds": info["seconds"], "ptxas": ptxas}
+    return report
 
 
 def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
@@ -411,6 +440,172 @@ def phase_serve(kernel, seed: int) -> dict:
     return report
 
 
+def _ssd_cost(Bb, L, H, G, P, N, Q) -> tuple[float, float]:
+    """Bytes (each input read once, each output written once) and FLOPs of
+    one chunked SSD scan.  Per (batch, head, chunk): the causal lower
+    triangle of the scores, Q(Q+1)/2 dot products of length N, and of the
+    intra-chunk product, Q(Q+1)/2 rows of P (Q(Q+1)(N+P) together); the
+    state readout and the state update, 2QNP each."""
+    nbytes = 4 * (2 * Bb * L * H * P + Bb * L * H + H + 2 * Bb * L * G * N + Bb * H * P * N)
+    flops = Bb * H * (L // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    return nbytes, flops
+
+
+def phase_lm(seed: int) -> tuple[dict, list[dict]]:
+    """LM serving at mamba2-370m's published config; returns the report
+    and the B5 kernel rows."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import mamba2
+
+    cfg = configs.get_config("mamba2-370m")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    server = LMServer(cfg, mamba2.init_params(cfg, gen, device="cuda"), device="cuda")
+    report = {"config": cfg.name, "params": cfg.num_params(), "batches": {}}
+    launches = 0
+    prompts_by = {}
+    for Bb, S, n_new in LM_BATCHES:
+        prompts = torch.randint(0, cfg.vocab, (Bb, S), generator=gen, device="cuda")
+        prompts_by[(Bb, S)] = prompts
+        server.generate(prompts, n_new)  # warm: cuBLAS handles, allocator
+        server.generate(prompts, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ssd_kernel.reset_launches()
+        pre, full, outs = [], [], []
+        for _ in range(LM_REPS):
+            t0 = time.perf_counter()
+            server.generate(prompts, 1)  # prefill + argmax; ends in a host copy
+            pre.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            outs.append(server.generate(prompts, n_new))
+            full.append(time.perf_counter() - t0)
+        n_launch = ssd_kernel.ssd_chunked_cuda.launches
+        prefills = 2 * LM_REPS
+        if n_launch != cfg.n_layers * prefills:
+            raise AssertionError(
+                f"B5 launched {n_launch} times for {prefills} prefills of {cfg.n_layers} layers"
+            )
+        launches += n_launch
+        for o in outs:
+            if o.shape != (Bb, n_new) or not ((0 <= o) & (o < cfg.vocab)).all():
+                raise AssertionError(f"bad tokens {o!r}")
+            if not np.array_equal(o, outs[0]):
+                raise AssertionError("a repeated generate answered differently")
+        med_pre, med_full = float(np.median(pre)), float(np.median(full))
+        dec_s = (med_full - med_pre) / (n_new - 1)
+        rec = {
+            "prompts": Bb, "prompt_tokens": S, "new_tokens": n_new,
+            "prefill_s": pre, "generate_s": full,
+            "prefill_median_ms": med_pre * 1e3,
+            "decode_ms_per_token": dec_s * 1e3,
+            "prefill_tokens_per_s": Bb * S / med_pre,
+            "decode_tokens_per_s": Bb / dec_s,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "ssd_launches": n_launch,
+            "first_tokens": outs[0][:, :8].tolist(),
+        }
+        report["batches"][f"{Bb}x{S}+{n_new}"] = rec
+        print(
+            f"lm: {Bb}x{S} prefill median {med_pre * 1e3:.2f} ms (min {min(pre) * 1e3:.2f}, "
+            f"max {max(pre) * 1e3:.2f}, n={len(pre)}) {rec['prefill_tokens_per_s']:.1f} tok/s; "
+            f"decode {dec_s * 1e3:.3f} ms/token {rec['decode_tokens_per_s']:.1f} tok/s "
+            f"(generate {n_new}: median {med_full * 1e3:.2f} ms); peak mem "
+            f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; B5 launches {n_launch}"
+        )
+    report["ssd_launches"] = launches
+
+    # where the time goes: one profiled prefill and one profiled generate
+    prompts = prompts_by[LM_BATCHES[0][:2]]
+    for name, n in (("prefill", 1), ("generate", LM_BATCHES[0][2])):
+        prof = _profile(lambda n=n: server.generate(prompts, n))
+        report[f"profile_{name}"] = prof
+        busy = ("not measured" if prof["busy_share"] is None
+                else f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.1%})")
+        print(f"profile: lm {name:8s} wall {prof['wall_ms']:.2f} ms, device busy {busy}")
+        for kname, ms in prof["top_kernels_ms"]:
+            print(f"profile:   {ms:9.3f} ms  {kname}")
+
+    # B5 against its plain version on layer 0's SSD inputs: batch one,
+    # the 2 x 1024 grid that batch two's padded prompts give it, and the
+    # (16, 16, 16) build that ``serve --mode lm`` runs on the smoke config
+    def b5_inputs(m, c, toks):
+        with torch.inference_mode():
+            x0 = m.embed.to(c.compute_dtype)[toks]
+            return [t.contiguous() for t in m.layers[0].ssd_inputs(x0)]
+
+    def b5_check(args, chunk):
+        y_k, s_k = ssd_kernel.ssd_chunked_cuda(*args, chunk)
+        y_p, s_p = ssd_ref.ssd_chunked_ref(*args, chunk=chunk)
+        rel_y, rel_s = _rel_l2(y_k, y_p), _rel_l2(s_k, s_p)
+        mx = max(float(torch.max(torch.abs(y_k - y_p))), float(torch.max(torch.abs(s_k - s_p))))
+        Bb, L, H, P = args[0].shape
+        N = args[3].shape[3]
+        print(
+            f"lm: B5 ({chunk}, {P}, {N}) vs plain on layer-0 inputs {Bb}x{L}: "
+            f"y rel L2 {rel_y:.3g}, S rel L2 {rel_s:.3g}, max abs {mx:.3g}"
+        )
+        if not (rel_y <= SSD_RTOL and rel_s <= SSD_RTOL):
+            raise AssertionError(f"B5 disagrees with its plain version (y {rel_y:.3g}, S {rel_s:.3g})")
+        return max(rel_y, rel_s), mx
+
+    model = server.model
+    rows = []
+    for tag, toks in (("", prompts), ("[2x1024]", prompts[:2, :1024])):
+        args = b5_inputs(model, cfg, toks)
+        rel, mx = b5_check(args, cfg.chunk)
+        Bb, L, H, P = args[0].shape
+        G, N = args[3].shape[2:]
+        ms = _time_ms(lambda: ssd_kernel.ssd_chunked_cuda(*args, cfg.chunk), 20)
+        plain_ms = _time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=cfg.chunk), 3)
+        bound, by = _bound_ms(*_ssd_cost(Bb, L, H, G, P, N, cfg.chunk))
+        rows.append({
+            "name": f"ssd_chunked{tag}",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:82",
+            "launches": launches,
+            "max_abs_err": mx,
+            "max_err": mx,
+            "rel_l2": rel,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+            "shape": {"Bb": Bb, "L": L, "H": H, "G": G, "P": P, "N": N, "chunk": cfg.chunk},
+        })
+        del args
+    scfg = configs.get_smoke_config("mamba2-370m")
+    small = mamba2.init_params(scfg, gen, device="cuda")
+    toks = torch.randint(0, scfg.vocab, (2, 64), generator=gen, device="cuda")
+    rel, mx = b5_check(b5_inputs(small, scfg, toks), scfg.chunk)
+    report["b5_smoke_build"] = {"rel_l2": rel, "max_abs_err": mx, "shape": [2, 64]}
+    del small
+
+    # a 2-layer float32 model at full width: kernel route == plain route
+    cfg2 = dataclasses.replace(
+        cfg, n_layers=2, param_dtype=torch.float32, compute_dtype=torch.float32
+    )
+    m_kernel = mamba2.init_params(cfg2, gen, device="cuda")
+    m_plain = mamba2.Mamba2(dataclasses.replace(cfg2, ssd_impl="chunked"), "cuda")
+    m_plain.load_state_dict(m_kernel.state_dict())
+    with torch.inference_mode():
+        l_kernel, _ = m_kernel.prefill(prompts_by[LM_BATCHES[1][:2]])
+        l_plain, _ = m_plain.prefill(prompts_by[LM_BATCHES[1][:2]])
+    rel = _rel_l2(l_kernel.float(), l_plain.float())
+    report["f32_2layer_logits_rel_l2"] = rel
+    print(f"lm: 2-layer f32 last logits, kernel vs plain route: rel L2 {rel:.3g}")
+    if not (rel <= LM_RTOL and torch.isfinite(l_kernel).all()):
+        raise AssertionError(f"kernel and plain routes disagree: rel L2 {rel:.3g}")
+    return report, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -419,18 +614,22 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.stmul import kernel, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"build": phase_build(kernel)}
+    report = {"build": phase_build({"stmul": kernel, "ssd": ssd_kernel})}
     report["serve"] = phase_serve(kernel, args.seed)
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
+    report["lm"], ssd_rows = phase_lm(args.seed)
+    rows += ssd_rows
     for r in rows:
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(
             f"kernel: {r['name']:28s} {r['ms']:8.4f} ms (bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}, plain {r['plain_ms']:.3f}, library "
-            f"{r['library_ms']:.4f}) launches {r['launches']} max_abs_err {r['max_abs_err']:.3g}"
+            f"{lib}) launches {r['launches']} max_abs_err {r['max_abs_err']:.3g}"
         )
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

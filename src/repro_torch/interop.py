@@ -4,8 +4,10 @@
 :class:`~repro_torch.core.engine.FusedGrating` from a reference
 grating's fields passed as numpy arrays plus its metadata, so a test can
 hold port *queries* against reference queries on the very same recorded
-grating, apart from record parity.  Tenant kernel sets are numpy on both
-sides and need no conversion.
+grating, apart from record parity.  :func:`mamba2_params_from_numpy`
+loads a reference Mamba-2 parameter tree into the port's module.  Tenant
+kernel sets are numpy on both sides and need no conversion.  Both take
+``device=None`` to mean the card, as every port entry point does.
 """
 
 from __future__ import annotations
@@ -13,7 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.engine import FusedGrating
+from repro_torch.models import mamba2
 
 
 def _to_torch(arr, device) -> torch.Tensor | None:
@@ -27,7 +31,7 @@ def _to_torch(arr, device) -> torch.Tensor | None:
     return torch.from_numpy(arr).to(device)
 
 
-def fused_grating_from_numpy(fields: dict, device: str = "cpu") -> FusedGrating:
+def fused_grating_from_numpy(fields: dict, device: str | None = None) -> FusedGrating:
     """Rebuild a recorded grating from its fields.
 
     ``fields`` maps the reference ``FusedGrating``'s field names to
@@ -37,6 +41,7 @@ def fused_grating_from_numpy(fields: dict, device: str = "cpu") -> FusedGrating:
     ``ker_shape``, ``encode``, ``slm_bits``, ``pseudo_negative``,
     ``storage_dtype``).
     """
+    device = resolve_device(device)
     return FusedGrating(
         stacked=_to_torch(fields.get("stacked"), device),
         effective=_to_torch(fields.get("effective"), device),
@@ -56,3 +61,38 @@ def fused_grating_from_numpy(fields: dict, device: str = "cpu") -> FusedGrating:
         eff_im=_to_torch(fields.get("eff_im"), device),
         storage_dtype=str(fields.get("storage_dtype", "float32")),
     )
+
+
+@torch.no_grad()
+def mamba2_params_from_numpy(params: dict, cfg: mamba2.Mamba2Config, device=None) -> mamba2.Mamba2:
+    """The port's :class:`~repro_torch.models.mamba2.Mamba2` holding a
+    reference parameter tree.
+
+    ``params`` is the reference ``init_params`` tree with numpy leaves:
+    ``embed``, ``final_norm``, ``lm_head`` when the embeddings are not
+    tied, and ``layers`` mapping each of ``mamba2.LAYER_FIELDS`` to an
+    array stacked on axis 0, one slice per block.  Every array must have
+    the shape and dtype the port's module holds for ``cfg``.
+    """
+    model = mamba2.Mamba2(cfg, resolve_device(device))
+
+    def put(p: torch.nn.Parameter, arr, name: str) -> None:
+        t = _to_torch(arr, p.device)
+        if t.shape != p.shape or t.dtype != p.dtype:
+            raise ValueError(
+                f"{name}: got {tuple(t.shape)} {t.dtype}, the model holds "
+                f"{tuple(p.shape)} {p.dtype}"
+            )
+        p.copy_(t)
+
+    put(model.embed, params["embed"], "embed")
+    put(model.final_norm, params["final_norm"], "final_norm")
+    if not cfg.tie_embeddings:
+        put(model.lm_head, params["lm_head"], "lm_head")
+    for name in mamba2.LAYER_FIELDS:
+        stacked = np.asarray(params["layers"][name])
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{name} stacks {stacked.shape[0]} layers, cfg has {cfg.n_layers}")
+        for i, block in enumerate(model.layers):
+            put(getattr(block, name), stacked[i], f"layers.{name}[{i}]")
+    return model

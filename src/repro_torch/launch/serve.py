@@ -28,8 +28,13 @@ projected loader rates.  The microbatch scheduler, the hybrid
 classifier server, the chaos seams and mesh serving come in later
 slices.
 
-Run ``python -m repro_torch.launch.serve --mode video`` for a demo (on
-the card; ``--device cpu`` for the plain torch path).
+:class:`LMServer` serves a language model greedily: one ``prefill`` of
+the prompt batch, then one ``decode_step`` per new token (Mamba-2, whose
+prefill runs the SSD kernel once per layer).
+
+Run ``python -m repro_torch.launch.serve --mode video`` (or ``--mode
+lm``) for a demo (on the card; ``--device cpu`` for the plain torch
+path).
 """
 
 from __future__ import annotations
@@ -44,12 +49,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import configs, resolve_device
 from repro_torch.core import atomic, fidelity as fidelity_mod, optics, throughput
 from repro_torch.core.engine import TOPK_EMPTY_IDX, GratingCache, as_tensor, clip_keys_for
 from repro_torch.core.fidelity import FidelityPipeline
 from repro_torch.core.sthc import STHC, STHCConfig
 from repro_torch.launch.resilience import ServingError, TenantQuarantined
+from repro_torch.models import model_api
 
 
 @dataclasses.dataclass
@@ -620,12 +626,65 @@ class VideoSearchServer:
         }
 
 
+# ---------------------------------------------------------------------------
+# LM serving
+# ---------------------------------------------------------------------------
+
+
+class LMServer:
+    """Greedy generation with a ported language model (port of the
+    reference's ``LMServer``).
+
+    ``params`` is the model module built for ``cfg`` (``init_params`` or
+    ``interop.mamba2_params_from_numpy``); it is moved to ``device``
+    (None = the card).  ``max_len`` exists only to match the reference's
+    signature: no ported model reads it (an SSM cache does not grow with
+    the sequence)."""
+
+    def __init__(self, cfg, params: torch.nn.Module, max_len: int = 128, device=None):
+        del max_len
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        model_api.get_model(cfg)  # a TypeError for a family not ported yet
+        if getattr(params, "cfg", None) != cfg:
+            raise ValueError("params were not built for this config")
+        self.model = params.to(self.device)
+
+    @torch.inference_mode()
+    def generate(self, prompts, n_tokens: int) -> np.ndarray:
+        """Greedy generation.  prompts: (B, S) integer tokens (numpy or a
+        tensor).  Returns (B, n_tokens) int32: the argmax after the
+        prompt, then after each generated token."""
+        toks = torch.as_tensor(prompts).to(device=self.device, dtype=torch.long)
+        logits, cache = self.model.prefill(toks)
+        out = [logits.argmax(-1)[:, None]]
+        for _ in range(n_tokens - 1):
+            logits, cache = self.model.decode_step(cache, out[-1])
+            out.append(logits.argmax(-1)[:, None])
+        return torch.cat(out, dim=1).to(torch.int32).cpu().numpy()
+
+
 def main(argv: Sequence[str] | None = None) -> None:
-    ap = argparse.ArgumentParser(description="STHC video-search serving demo")
-    ap.add_argument("--mode", choices=["video"], default="video")
+    ap = argparse.ArgumentParser(description="STHC video-search / LM serving demo")
+    ap.add_argument(
+        "--mode", choices=["video", "lm"], default="video",
+        help="video: two-tenant video search; lm: greedy generation with the "
+        "mamba2-370m smoke config (the reference's lm mode serves qwen2-1.5b, "
+        "whose transformer is not ported yet)",
+    )
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        cfg = configs.get_smoke_config("mamba2-370m")
+        device = resolve_device(args.device)
+        params = model_api.get_model(cfg).init_params(
+            cfg, torch.Generator(device).manual_seed(0), device=device
+        )
+        server = LMServer(cfg, params, device=device)
+        toks = np.arange(8, dtype=np.int64)[None] % cfg.vocab
+        print(f"generated on {device}:", server.generate(toks, 8))
+        return
     rng = np.random.RandomState(0)
     server = VideoSearchServer(
         frame_hw=(24, 32), cfg=VideoSearchConfig(device=args.device)
