@@ -7,8 +7,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each reported on lines of its own:
 
 1. build   — compile the CUDA kernels (``src/repro_torch/kernels/
-             stmul/csrc`` and ``kernels/ssd/csrc``) with nvcc for sm_90a,
-             one nvcc per library, both started together, and load them.
+             stmul/csrc``, ``kernels/ssd/csrc`` and ``kernels/flash/csrc``)
+             with nvcc for sm_90a, one nvcc per library, all started
+             together, and load them.
 2. serve   — a VideoSearchServer at the paper geometry (60x80 frames,
              four tenants of 9x1x30x40x8 kernels, 64-frame windows, 4
              windows per chunk) answers six 1024-frame requests, two
@@ -44,6 +45,23 @@ Phases, each reported on lines of its own:
              to the same limit on that config; a 2-layer float32 model
              at full width must give the same last logits by the kernel
              route and the plain route (relative L2 <= 1e-4).
+5. lm_dense — qwen2-1.5b at its published config (28 layers, d_model
+             1536, 12 query and 2 kv heads of 128, bf16, random weights
+             from a seeded generator on the card) served by
+             ``LMServer.generate`` with a KV cache of prompt + new tokens,
+             on the same two batches, timed and profiled as in ``lm``;
+             the flash-attention kernel's (B6) launch counter must read
+             28 x the prefills run.  B6 is held against its plain version
+             on layer 0's q, k, v of both batches (relative L2 <= 1e-2:
+             the plain version rounds q·scale to bf16), and in float32
+             on the reference test sweep's shapes and the smoke config's
+             head dim 24 (relative L2 <= 1e-5, max abs <= 3e-5); timed
+             beside its plain version, one
+             ``scaled_dot_product_attention`` call as the library
+             yardstick, and its bound (bytes at 3.35 TB/s or the causal
+             triangle's FLOPs at 989 TFLOP/s bf16); a 2-layer float32
+             model at full width must give the same last logits by the
+             kernel route and the plain route (relative L2 <= 1e-4).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -68,8 +86,11 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 MAC_RTOL = 1e-5
 SSD_RTOL = 1e-5
+FLASH_BF16_RTOL = 1e-2  # the plain version rounds q·scale to bf16 before the dot
+FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-5, 3e-5
 LM_RTOL = 1e-4
 SERVE_REPS = 7  # timed calls per serving mode, after one warm-up
 LM_REPS = 5  # timed calls per LM batch and kind, after one warm-up
@@ -95,9 +116,9 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -451,31 +472,26 @@ def _ssd_cost(Bb, L, H, G, P, N, Q) -> tuple[float, float]:
     return nbytes, flops
 
 
-def phase_lm(seed: int) -> tuple[dict, list[dict]]:
-    """LM serving at mamba2-370m's published config; returns the report
-    and the B5 kernel rows."""
-    import dataclasses
-
-    from repro_torch import configs
-    from repro_torch.kernels.ssd import kernel as ssd_kernel
-    from repro_torch.kernels.ssd import ref as ssd_ref
-    from repro_torch.launch.serve import LMServer
-    from repro_torch.models import mamba2
-
-    cfg = configs.get_config("mamba2-370m")
-    gen = torch.Generator("cuda").manual_seed(seed)
-    server = LMServer(cfg, mamba2.init_params(cfg, gen, device="cuda"), device="cuda")
+def _serve_lm(tag, cfg, server_for, gen, kernel_fn, reset) -> tuple[dict, dict]:
+    """``LMServer.generate`` over ``LM_BATCHES``: one warm-up, then
+    ``LM_REPS`` timed prefill-only and full calls per batch; the
+    kernel's launch counter, zeroed before the timed calls, must read
+    ``n_layers`` x the prefills run.  Then one profiled prefill and one
+    profiled generate of batch one.  Returns the report and the prompts
+    by (rows, length)."""
     report = {"config": cfg.name, "params": cfg.num_params(), "batches": {}}
+    kname = kernel_fn.__name__
     launches = 0
-    prompts_by = {}
+    prompts_by, servers = {}, {}
     for Bb, S, n_new in LM_BATCHES:
+        server = servers[(Bb, S)] = server_for(S + n_new)
         prompts = torch.randint(0, cfg.vocab, (Bb, S), generator=gen, device="cuda")
         prompts_by[(Bb, S)] = prompts
         server.generate(prompts, n_new)  # warm: cuBLAS handles, allocator
         server.generate(prompts, 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ssd_kernel.reset_launches()
+        reset()
         pre, full, outs = [], [], []
         for _ in range(LM_REPS):
             t0 = time.perf_counter()
@@ -484,11 +500,11 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
             t0 = time.perf_counter()
             outs.append(server.generate(prompts, n_new))
             full.append(time.perf_counter() - t0)
-        n_launch = ssd_kernel.ssd_chunked_cuda.launches
+        n_launch = kernel_fn.launches
         prefills = 2 * LM_REPS
         if n_launch != cfg.n_layers * prefills:
             raise AssertionError(
-                f"B5 launched {n_launch} times for {prefills} prefills of {cfg.n_layers} layers"
+                f"{kname} launched {n_launch} times for {prefills} prefills of {cfg.n_layers} layers"
             )
         launches += n_launch
         for o in outs:
@@ -506,29 +522,53 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
             "prefill_tokens_per_s": Bb * S / med_pre,
             "decode_tokens_per_s": Bb / dec_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "ssd_launches": n_launch,
+            "kernel_launches": n_launch,
             "first_tokens": outs[0][:, :8].tolist(),
         }
         report["batches"][f"{Bb}x{S}+{n_new}"] = rec
         print(
-            f"lm: {Bb}x{S} prefill median {med_pre * 1e3:.2f} ms (min {min(pre) * 1e3:.2f}, "
+            f"{tag}: {Bb}x{S} prefill median {med_pre * 1e3:.2f} ms (min {min(pre) * 1e3:.2f}, "
             f"max {max(pre) * 1e3:.2f}, n={len(pre)}) {rec['prefill_tokens_per_s']:.1f} tok/s; "
             f"decode {dec_s * 1e3:.3f} ms/token {rec['decode_tokens_per_s']:.1f} tok/s "
             f"(generate {n_new}: median {med_full * 1e3:.2f} ms); peak mem "
-            f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; B5 launches {n_launch}"
+            f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; {kname} launches {n_launch}"
         )
-    report["ssd_launches"] = launches
+    report["kernel_launches"] = launches
 
     # where the time goes: one profiled prefill and one profiled generate
-    prompts = prompts_by[LM_BATCHES[0][:2]]
-    for name, n in (("prefill", 1), ("generate", LM_BATCHES[0][2])):
-        prof = _profile(lambda n=n: server.generate(prompts, n))
+    Bb, S, n_new = LM_BATCHES[0]
+    prompts = prompts_by[(Bb, S)]
+    for name, n in (("prefill", 1), ("generate", n_new)):
+        prof = _profile(lambda n=n: servers[(Bb, S)].generate(prompts, n))
         report[f"profile_{name}"] = prof
         busy = ("not measured" if prof["busy_share"] is None
                 else f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.1%})")
-        print(f"profile: lm {name:8s} wall {prof['wall_ms']:.2f} ms, device busy {busy}")
-        for kname, ms in prof["top_kernels_ms"]:
-            print(f"profile:   {ms:9.3f} ms  {kname}")
+        print(f"profile: {tag} {name:8s} wall {prof['wall_ms']:.2f} ms, device busy {busy}")
+        for kn, ms in prof["top_kernels_ms"]:
+            print(f"profile:   {ms:9.3f} ms  {kn}")
+    return report, prompts_by
+
+
+def phase_lm(seed: int) -> tuple[dict, list[dict]]:
+    """LM serving at mamba2-370m's published config; returns the report
+    and the B5 kernel rows."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import mamba2
+
+    cfg = configs.get_config("mamba2-370m")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    server = LMServer(cfg, mamba2.init_params(cfg, gen, device="cuda"), device="cuda")
+    report, prompts_by = _serve_lm(
+        "lm", cfg, lambda max_len: server, gen, ssd_kernel.ssd_chunked_cuda,
+        ssd_kernel.reset_launches,
+    )
+    launches = report["kernel_launches"]
+    prompts = prompts_by[LM_BATCHES[0][:2]]
 
     # B5 against its plain version on layer 0's SSD inputs: batch one,
     # the 2 x 1024 grid that batch two's padded prompts give it, and the
@@ -606,6 +646,134 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
     return report, rows
 
 
+def _attn_cost(B, Sq, Sk, H, G, D, causal, itemsize) -> tuple[float, float]:
+    """Bytes (q, k, v read once, o written once) and FLOPs (4·D per
+    query-key pair the mask keeps: the causal triangle, top-left
+    aligned) of one attention forward."""
+    nbytes = itemsize * D * (2 * B * Sq * H + 2 * B * Sk * G)
+    n = min(Sq, Sk)
+    pairs = n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk if causal else Sq * Sk
+    return nbytes, 4 * D * B * H * pairs
+
+
+def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
+    """Dense-transformer LM serving at qwen2-1.5b's published config;
+    returns the report and the B6 kernel rows."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.flash import ref as flash_ref
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import transformer
+
+    cfg = configs.get_config("qwen2-1.5b")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    model = transformer.init_params(cfg, gen, device="cuda")
+    report, prompts_by = _serve_lm(
+        "lm_dense", cfg,
+        lambda max_len: LMServer(cfg, model, max_len=max_len, device="cuda"),
+        gen, flash_kernel.flash_fwd_cuda, flash_kernel.reset_launches,
+    )
+    launches = report["kernel_launches"]
+
+    def layer0_qkv(m, toks):
+        with torch.inference_mode():
+            B, S = toks.shape
+            pos = torch.arange(S, device="cuda")[None].expand(B, S)
+            return m.layers[0].qkv(m.embed.to(m.cfg.compute_dtype)[toks], pos)
+
+    def check(tag, q, k, v, causal, rtol, atol=None):
+        o_k = flash_kernel.flash_fwd_cuda(q, k, v, causal)
+        o_p = flash_ref.flash_ref(q, k, v, causal=causal)
+        rel = _rel_l2(o_k.float(), o_p.float())
+        mx = float(torch.max(torch.abs(o_k.float() - o_p.float())))
+        print(
+            f"lm_dense: B6 {tag} q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} "
+            f"causal={causal} vs plain: rel L2 {rel:.3g}, max abs {mx:.3g}"
+        )
+        if not (rel <= rtol and (atol is None or mx <= atol) and torch.isfinite(o_k).all()):
+            raise AssertionError(f"B6 {tag} disagrees with its plain version (rel {rel:.3g}, max {mx:.3g})")
+        return rel, mx
+
+    # B6 at the main path's shapes: layer 0's real q, k, v of both batches
+    rows = []
+    for Bb, S, _ in LM_BATCHES:
+        q, k, v = layer0_qkv(model, prompts_by[(Bb, S)])
+        rel, mx = check(f"[{Bb}x{S}]", q, k, v, True, FLASH_BF16_RTOL)
+        G = k.shape[2]
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        ms = _time_ms(lambda: flash_kernel.flash_fwd_cuda(q, k, v, True), 20)
+        plain_ms = _time_ms(lambda: flash_ref.flash_ref(q, k, v, causal=True), 3)
+        lib_ms = _time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20
+        )
+        cost = _attn_cost(Bb, S, S, cfg.n_heads, G, cfg.hd, True, q.element_size())
+        bound, by = _bound_ms(*cost, rate=BF16_FLOPS)
+        rows.append({
+            "name": f"flash_fwd[{Bb}x{S}]",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/flash/csrc/flash.cu",
+            "replaces": "src/repro/kernels/flash/kernel.py:94",
+            "launches": launches,
+            "max_abs_err": mx,
+            "max_err": mx,
+            "rel_l2": rel,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": lib_ms,
+            "shape": {"B": Bb, "Sq": S, "Sk": S, "H": cfg.n_heads, "G": G, "D": cfg.hd,
+                      "dtype": "bfloat16", "causal": True},
+        })
+        del q, k, v, qt, kt, vt
+
+    # float32 builds: the reference test sweep's shapes (head dims 16 and
+    # 32, both mask settings, ragged lengths, the 40-vs-100 cross case)
+    # and the qwen2 smoke config's layer 0 (head dim 24), which
+    # ``serve --mode lm`` runs
+    f32 = {}
+    for B, Sq, Sk, H, G, D, causal in (
+        (2, 37, 37, 4, 2, 16, True), (2, 37, 37, 4, 4, 16, False),
+        (2, 96, 96, 8, 4, 32, True), (2, 71, 71, 2, 2, 32, False),
+        (1, 40, 100, 4, 2, 16, False),
+    ):
+        q = torch.randn((B, Sq, H, D), generator=gen, device="cuda")
+        k = torch.randn((B, Sk, G, D), generator=gen, device="cuda")
+        v = torch.randn((B, Sk, G, D), generator=gen, device="cuda")
+        tag = f"f32[{B}x{Sq}x{Sk},h{H},g{G},d{D}]"
+        f32[tag] = check(tag, q, k, v, causal, FLASH_F32_RTOL, FLASH_F32_ATOL)
+    scfg = configs.get_smoke_config("qwen2-1.5b")
+    small = transformer.init_params(scfg, gen, device="cuda")
+    toks = torch.randint(0, scfg.vocab, (2, 64), generator=gen, device="cuda")
+    f32["smoke[2x64,d24]"] = check(
+        "qwen2 smoke", *layer0_qkv(small, toks), True, FLASH_F32_RTOL, FLASH_F32_ATOL
+    )
+    report["b6_f32_checks"] = f32
+    del small
+
+    # a 2-layer float32 model at full width: kernel route == plain route
+    cfg2 = dataclasses.replace(
+        cfg, n_layers=2, param_dtype=torch.float32, compute_dtype=torch.float32
+    )
+    m_kernel = transformer.init_params(cfg2, gen, device="cuda")
+    m_plain = transformer.Transformer(dataclasses.replace(cfg2, attn_impl="blockwise"), "cuda")
+    m_plain.load_state_dict(m_kernel.state_dict())
+    with torch.inference_mode():
+        l_kernel, _ = m_kernel.prefill(prompts_by[LM_BATCHES[1][:2]])
+        l_plain, _ = m_plain.prefill(prompts_by[LM_BATCHES[1][:2]])
+    rel = _rel_l2(l_kernel.float(), l_plain.float())
+    report["f32_2layer_logits_rel_l2"] = rel
+    print(f"lm_dense: 2-layer f32 last logits, kernel vs plain route: rel L2 {rel:.3g}")
+    if not (rel <= LM_RTOL and torch.isfinite(l_kernel).all()):
+        raise AssertionError(f"kernel and plain routes disagree: rel L2 {rel:.3g}")
+    return report, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -614,16 +782,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.stmul import kernel, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"build": phase_build({"stmul": kernel, "ssd": ssd_kernel})}
+    report = {"build": phase_build({"stmul": kernel, "ssd": ssd_kernel, "flash": flash_kernel})}
     report["serve"] = phase_serve(kernel, args.seed)
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
     report["lm"], ssd_rows = phase_lm(args.seed)
     rows += ssd_rows
+    report["lm_dense"], flash_rows = phase_lm_dense(args.seed)
+    rows += flash_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

@@ -11,7 +11,9 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-PORTED = ("mamba2_370m", "sthc_kth")
+PORTED = (
+    "granite_8b", "llama3_405b", "mamba2_370m", "nemotron_4_15b", "qwen2_1_5b", "sthc_kth",
+)
 
 
 def _normalize(name: str) -> str:

@@ -5,8 +5,9 @@
 grating's fields passed as numpy arrays plus its metadata, so a test can
 hold port *queries* against reference queries on the very same recorded
 grating, apart from record parity.  :func:`mamba2_params_from_numpy`
-loads a reference Mamba-2 parameter tree into the port's module.  Tenant
-kernel sets are numpy on both sides and need no conversion.  Both take
+and :func:`transformer_params_from_numpy` load a reference Mamba-2 or
+dense-transformer parameter tree into the port's module.  Tenant kernel
+sets are numpy on both sides and need no conversion.  All take
 ``device=None`` to mean the card, as every port entry point does.
 """
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.engine import FusedGrating
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, transformer
 
 
 def _to_torch(arr, device) -> torch.Tensor | None:
@@ -63,6 +64,31 @@ def fused_grating_from_numpy(fields: dict, device: str | None = None) -> FusedGr
     )
 
 
+def _put(p: torch.nn.Parameter, arr, name: str) -> None:
+    t = _to_torch(arr, p.device)
+    if t.shape != p.shape or t.dtype != p.dtype:
+        raise ValueError(
+            f"{name}: got {tuple(t.shape)} {t.dtype}, the model holds "
+            f"{tuple(p.shape)} {p.dtype}"
+        )
+    p.copy_(t)
+
+
+def _load(model, params: dict, cfg, fields) -> None:
+    """Copy a reference tree's ``embed``, ``final_norm``, ``lm_head``
+    (untied only) and stacked ``layers`` fields into ``model``."""
+    _put(model.embed, params["embed"], "embed")
+    _put(model.final_norm, params["final_norm"], "final_norm")
+    if not cfg.tie_embeddings:
+        _put(model.lm_head, params["lm_head"], "lm_head")
+    for name in fields:
+        stacked = np.asarray(params["layers"][name])
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers.{name} stacks {stacked.shape[0]} layers, cfg has {cfg.n_layers}")
+        for i, block in enumerate(model.layers):
+            _put(getattr(block, name), stacked[i], f"layers.{name}[{i}]")
+
+
 @torch.no_grad()
 def mamba2_params_from_numpy(params: dict, cfg: mamba2.Mamba2Config, device=None) -> mamba2.Mamba2:
     """The port's :class:`~repro_torch.models.mamba2.Mamba2` holding a
@@ -75,24 +101,24 @@ def mamba2_params_from_numpy(params: dict, cfg: mamba2.Mamba2Config, device=None
     the shape and dtype the port's module holds for ``cfg``.
     """
     model = mamba2.Mamba2(cfg, resolve_device(device))
+    _load(model, params, cfg, mamba2.LAYER_FIELDS)
+    return model
 
-    def put(p: torch.nn.Parameter, arr, name: str) -> None:
-        t = _to_torch(arr, p.device)
-        if t.shape != p.shape or t.dtype != p.dtype:
-            raise ValueError(
-                f"{name}: got {tuple(t.shape)} {t.dtype}, the model holds "
-                f"{tuple(p.shape)} {p.dtype}"
-            )
-        p.copy_(t)
 
-    put(model.embed, params["embed"], "embed")
-    put(model.final_norm, params["final_norm"], "final_norm")
-    if not cfg.tie_embeddings:
-        put(model.lm_head, params["lm_head"], "lm_head")
-    for name in mamba2.LAYER_FIELDS:
-        stacked = np.asarray(params["layers"][name])
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{name} stacks {stacked.shape[0]} layers, cfg has {cfg.n_layers}")
-        for i, block in enumerate(model.layers):
-            put(getattr(block, name), stacked[i], f"layers.{name}[{i}]")
+@torch.no_grad()
+def transformer_params_from_numpy(
+    params: dict, cfg: transformer.TransformerConfig, device=None
+) -> transformer.Transformer:
+    """The port's :class:`~repro_torch.models.transformer.Transformer`
+    holding a reference parameter tree, as
+    :func:`mamba2_params_from_numpy`.  ``layers`` must hold exactly the
+    fields of ``transformer.LAYER_FIELDS`` that ``cfg`` has (the biases
+    with ``qkv_bias``, ``w_gate`` with the SwiGLU MLP)."""
+    model = transformer.Transformer(cfg, resolve_device(device))
+    fields = transformer.layer_shapes(cfg)
+    if set(params["layers"]) != set(fields):
+        raise ValueError(
+            f"layers hold {sorted(params['layers'])}, cfg {cfg.name!r} has {sorted(fields)}"
+        )
+    _load(model, params, cfg, fields)
     return model

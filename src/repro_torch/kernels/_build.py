@@ -26,8 +26,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "arch=compute_90a,code=sm_90a"
 
 # ctypes argument codes of the C entry points: pointers and the stream
-# are c_void_p (a bare int would be cut to 32 bits), sizes int or int64
-VP, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# are c_void_p (a bare int would be cut to 32 bits), sizes int or int64,
+# scalars float
+VP, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 def _nvcc() -> str:

@@ -29,8 +29,10 @@ classifier server, the chaos seams and mesh serving come in later
 slices.
 
 :class:`LMServer` serves a language model greedily: one ``prefill`` of
-the prompt batch, then one ``decode_step`` per new token (Mamba-2, whose
-prefill runs the SSD kernel once per layer).
+the prompt batch, then one ``decode_step`` per new token: Mamba-2,
+whose prefill runs the SSD kernel once per layer, or the dense
+transformer, whose prefill runs the flash-attention kernel once per
+layer.
 
 Run ``python -m repro_torch.launch.serve --mode video`` (or ``--mode
 lm``) for a demo (on the card; ``--device cpu`` for the plain torch
@@ -636,15 +638,16 @@ class LMServer:
     reference's ``LMServer``).
 
     ``params`` is the model module built for ``cfg`` (``init_params`` or
-    ``interop.mamba2_params_from_numpy``); it is moved to ``device``
-    (None = the card).  ``max_len`` exists only to match the reference's
-    signature: no ported model reads it (an SSM cache does not grow with
-    the sequence)."""
+    ``interop.*_params_from_numpy``); it is moved to ``device`` (None =
+    the card).  ``max_len`` is the KV cache's length in positions: a
+    dense transformer's prompt plus generated tokens must fit in it (its
+    decode raises a ``ValueError`` past it).  Mamba-2 ignores it: an SSM
+    state does not grow with the sequence."""
 
     def __init__(self, cfg, params: torch.nn.Module, max_len: int = 128, device=None):
-        del max_len
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.max_len = max_len
         model_api.get_model(cfg)  # a TypeError for a family not ported yet
         if getattr(params, "cfg", None) != cfg:
             raise ValueError("params were not built for this config")
@@ -656,7 +659,7 @@ class LMServer:
         tensor).  Returns (B, n_tokens) int32: the argmax after the
         prompt, then after each generated token."""
         toks = torch.as_tensor(prompts).to(device=self.device, dtype=torch.long)
-        logits, cache = self.model.prefill(toks)
+        logits, cache = self.model.prefill(toks, max_len=self.max_len)
         out = [logits.argmax(-1)[:, None]]
         for _ in range(n_tokens - 1):
             logits, cache = self.model.decode_step(cache, out[-1])
@@ -668,15 +671,14 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description="STHC video-search / LM serving demo")
     ap.add_argument(
         "--mode", choices=["video", "lm"], default="video",
-        help="video: two-tenant video search; lm: greedy generation with the "
-        "mamba2-370m smoke config (the reference's lm mode serves qwen2-1.5b, "
-        "whose transformer is not ported yet)",
+        help="video: two-tenant video search; lm: greedy generation of 8 "
+        "tokens after an 8-token prompt with the qwen2-1.5b smoke config",
     )
     ap.add_argument("--frames", type=int, default=256)
     ap.add_argument("--device", default=None, help="torch device (default: cuda)")
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        cfg = configs.get_smoke_config("mamba2-370m")
+        cfg = configs.get_smoke_config("qwen2-1.5b")
         device = resolve_device(args.device)
         params = model_api.get_model(cfg).init_params(
             cfg, torch.Generator(device).manual_seed(0), device=device

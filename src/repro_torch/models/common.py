@@ -1,5 +1,6 @@
 """Shared building blocks of the port's models (the part of
-``repro.models.common`` that Mamba-2 uses).
+``repro.models.common`` that Mamba-2 and the dense transformer use):
+init, RMSNorm, RoPE, blockwise and decode attention, activations.
 
 Parameters are initialised with an explicit ``torch.Generator``; the
 numbers differ from ``jax.random``'s for the same seed, so parity tests
@@ -11,6 +12,7 @@ input's dtype, as in the reference.
 from __future__ import annotations
 
 import math
+from typing import Callable
 
 import torch
 
@@ -39,3 +41,171 @@ def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-5) -> Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * weight.float()).to(x.dtype)
+
+
+def zeros_init(shape: tuple[int, ...], dtype: torch.dtype, device=None) -> Tensor:
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def ones_init(shape: tuple[int, ...], dtype: torch.dtype, device=None) -> Tensor:
+    return torch.ones(shape, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> Tensor:
+    """Inverse frequencies (head_dim/2,), float32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
+    """Rotary embedding, half-split (not interleaved).  x: (B, S, H, D);
+    positions: (B, S) integer.  Angles and the rotation in float32, the
+    result cast back to x's dtype."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)  # (D/2,)
+    ang = positions[..., None].float() * inv[None, None, :]  # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]  # (B, S, 1, D/2)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (plain torch; the flash kernel's plain version is
+# blockwise_attention)
+# ---------------------------------------------------------------------------
+
+NEG = -1e30  # the mask value of masked scores
+
+
+def _dot_f32(eq: str, a: Tensor, b: Tensor) -> Tensor:
+    """einsum with float32 accumulation over inputs of any float dtype
+    (the reference's ``preferred_element_type=float32``): bf16 products
+    are exact in float32, so widening first changes nothing but the
+    accumulator."""
+    return torch.einsum(eq, a.float(), b.float())
+
+
+def blockwise_attention(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    kv_len: Tensor | None = None,
+    block_k: int = 512,
+    softmax_scale: float | None = None,
+) -> Tensor:
+    """Online-softmax attention with native GQA, O(Sq·block_k) memory.
+
+    q: (B, Sq, H, Dq); k: (B, Sk, G, Dq); v: (B, Sk, G, Dv), G | H (query
+    head h reads kv head h // (H/G)).  ``q_offset`` is the absolute
+    position of q[0]; ``kv_len`` optional (B,) valid kv lengths.  As the
+    reference: q is scaled in q's dtype before the dot, scores are
+    float32, masked scores are −1e30, the running max starts at −inf, p
+    is cast to v's dtype before the p·v dot.  Returns (B, Sq, H, Dv) in
+    q's dtype.
+    """
+    B, Sq, H, Dq = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    R = H // G
+    Dv = v.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dq)
+
+    qf = (q * scale).reshape(B, Sq, G, R, Dq)  # stays in q's dtype
+    block_k = min(block_k, Sk)
+    pad_k = (-Sk) % block_k
+    if pad_k:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_k))
+    n_blocks = (Sk + pad_k) // block_k
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)  # (Sq,) absolute
+    limit = kv_len[:, None] if kv_len is not None else torch.tensor(Sk, device=dev)
+
+    m = torch.full((B, G, R, Sq), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, G, R, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, G, R, Sq, Dv), dtype=torch.float32, device=dev)
+    for i in range(n_blocks):
+        kblk = k[:, i * block_k : (i + 1) * block_k]
+        vblk = v[:, i * block_k : (i + 1) * block_k]
+        s = _dot_f32("bqgrd,bkgd->bgrqk", qf, kblk)  # (B, G, R, Sq, bk)
+        k_pos = i * block_k + torch.arange(block_k, device=dev)
+        if causal:
+            mask = q_pos[:, None] >= k_pos[None, :]  # (Sq, bk)
+            s = torch.where(mask, s, NEG)
+        valid = k_pos[None, :] < limit  # (B, bk) or (1, bk)
+        s = torch.where(valid[:, None, None, None, :], s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = _dot_f32("bgrqk,bkgd->bgrqd", p.to(vblk.dtype), vblk)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4)  # (B, Sq, G, R, Dv)
+    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def decode_attention(
+    q: Tensor,
+    k: Tensor,
+    v: Tensor,
+    kv_len: Tensor,
+    softmax_scale: float | None = None,
+) -> Tensor:
+    """Single-query attention over a KV cache, in one block (the
+    reference leaves it to XLA; here it is plain torch on both devices).
+
+    q: (B, 1, H, Dq); k: (B, M, G, Dq); v: (B, M, G, Dv); kv_len: (B,)
+    valid lengths.  Returns (B, 1, H, Dv) in q's dtype."""
+    B, Sq, H, Dq = q.shape
+    M, G = k.shape[1], k.shape[2]
+    R = H // G
+    Dv = v.shape[-1]
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dq)
+    qf = (q * scale).reshape(B, Sq, G, R, Dq)
+    s = _dot_f32("bqgrd,bkgd->bgrqk", qf, k)
+    valid = torch.arange(M, device=q.device)[None, :] < kv_len[:, None]  # (B, M)
+    s = torch.where(valid[:, None, None, None, :], s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = _dot_f32("bgrqk,bkgd->bgrqd", p.to(v.dtype), v)
+    out = out / torch.clamp(l, min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4)  # (B, Sq, G, R, Dv)
+    return out.reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def swiglu(gate: Tensor, up: Tensor) -> Tensor:
+    return torch.nn.functional.silu(gate.float()).to(gate.dtype) * up
+
+
+def squared_relu(x: Tensor) -> Tensor:
+    r = torch.relu(x)
+    return r * r
+
+
+def _gelu(x: Tensor) -> Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
+    "gelu": _gelu,
+    "relu": torch.relu,
+    "squared_relu": squared_relu,
+    "silu": torch.nn.functional.silu,
+}

@@ -236,8 +236,9 @@ class Mamba2(nn.Module):
             "length": 0,
         }
 
-    def prefill(self, tokens: Tensor):
-        """Run the full prompt (B, S): last logits (B, vocab) + the cache."""
+    def prefill(self, tokens: Tensor, max_len: int | None = None):
+        """Run the full prompt (B, S): last logits (B, vocab) + the cache.
+        ``max_len`` is ignored: the SSM state does not grow."""
         x = self.embed.to(self.cfg.compute_dtype)[tokens]
         convs, ssms = [], []
         for block in self.layers:

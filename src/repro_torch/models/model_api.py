@@ -10,10 +10,12 @@ from __future__ import annotations
 
 from types import ModuleType
 
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, transformer
 
+# most-derived first: Mamba2Config subclasses TransformerConfig
 _DISPATCH: list[tuple[type, ModuleType]] = [
     (mamba2.Mamba2Config, mamba2),
+    (transformer.TransformerConfig, transformer),
 ]
 
 
@@ -24,5 +26,5 @@ def get_model(cfg) -> ModuleType:
     family = getattr(cfg, "family", None)
     raise TypeError(
         f"model family {family!r} ({type(cfg).__name__}) is not ported to "
-        "repro_torch yet; ported: 'ssm' (Mamba2Config)"
+        "repro_torch yet; ported: 'ssm' (Mamba2Config), 'dense' (TransformerConfig)"
     )

@@ -13,6 +13,7 @@ top-two logits lie within 1e-5, which the test reports and stops
 comparing (its later tokens follow a different prefix).
 """
 
+import types
 import warnings
 
 import numpy as np
@@ -175,11 +176,12 @@ def test_entry_points_need_a_device(pair):
 
 
 def test_unported_families_and_configs_raise():
-    with pytest.raises(TypeError, match="'dense'"):
-        model_api.get_model(transformer.TransformerConfig())
+    with pytest.raises(TypeError, match="'moe'"):
+        model_api.get_model(types.SimpleNamespace(family="moe"))
+    assert model_api.get_model(transformer.TransformerConfig()) is transformer
     assert model_api.get_model(t_configs.get_smoke_config("mamba2-370m")) is t_mamba2
-    with pytest.raises(ValueError, match="'qwen2-1.5b' is unknown or not ported"):
-        t_configs.get_config("qwen2-1.5b")
+    with pytest.raises(ValueError, match="'zamba2-2.7b' is unknown or not ported"):
+        t_configs.get_config("zamba2-2.7b")
     with pytest.raises(ValueError, match="'no-such-model' is unknown or not ported"):
         t_configs.get_smoke_config("no-such-model")
     assert t_configs.get_config("sthc_kth").num_kernels == 9
