@@ -7,9 +7,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each reported on lines of its own:
 
 1. build   — compile the CUDA kernels (``src/repro_torch/kernels/
-             stmul/csrc``, ``kernels/ssd/csrc`` and ``kernels/flash/csrc``)
-             with nvcc for sm_90a, one nvcc per library, all started
-             together, and load them.
+             stmul/csrc``, ``kernels/ssd/csrc``, ``kernels/flash/csrc``
+             and ``kernels/conv3d/csrc``) with nvcc for sm_90a, one nvcc
+             per library, all started together, and load them.
 2. serve   — a VideoSearchServer at the paper geometry (60x80 frames,
              four tenants of 9x1x30x40x8 kernels, 64-frame windows, 4
              windows per chunk) answers six 1024-frame requests, two
@@ -62,6 +62,32 @@ Phases, each reported on lines of its own:
              triangle's FLOPs at 989 TFLOP/s bf16); a 2-layer float32
              model at full width must give the same last logits by the
              kernel route and the plain route (relative L2 <= 1e-4).
+6. classify — the paper's hybrid 3-D CNN at its full geometry (60x80x16
+             clips, 9 kernels of 30x40x8, pool (8, 8, 3), hidden 128, 4
+             classes; random weights from a seeded generator on the card)
+             on the 144-clip synthetic-KTH test split in batches of 16:
+             ``predict`` with impl digital (B4), spectral and
+             sthc_physical (B1), and ``HybridClassifierServer.classify``,
+             physical and ideal (B1); one warm-up and 7 timed batches per
+             route, five profiled calls each.  Then ``classify_stream`` and
+             ``conv_layer_stream(impl='digital')`` on four 512-frame
+             streams, one per class.  Checks: digital and spectral
+             predictions equal outside near-ties (top-two logits within
+             1e-4 of their scale), the ideal server equal to
+             ``predict(spectral)`` likewise, every ``classify_stream``
+             segment equal to ``classify`` of its sub-clip, the streamed
+             digital conv within 2e-4 (max error over max) of the
+             streamed ideal STHC conv, and B4's launch counter, zeroed
+             before the phase, equal to the digital calls made.  B4 is
+             held against its plain version (relative L2 <= 1e-5 in
+             float32, <= 1e-2 in bf16 against the plain version on the
+             same inputs upcast) at the batch and stream shapes,
+             kernels_bench's C3D case (float32 and bf16) and the
+             reference test sweep's shapes, and timed beside it (the
+             plain version is one cuDNN ``F.conv3d`` call, so its time is
+             also the library time); B1 likewise at the classifier's
+             shapes (16 spectra against a (9, 1, F) grating, F from the
+             60x80x16 clip's FFT grid).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -71,6 +97,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -95,6 +122,18 @@ LM_RTOL = 1e-4
 SERVE_REPS = 7  # timed calls per serving mode, after one warm-up
 LM_REPS = 5  # timed calls per LM batch and kind, after one warm-up
 LM_BATCHES = ((4, 2048, 32), (2, 1000, 8))  # (prompts, prompt tokens, new tokens)
+CONV_RTOL, CONV_BF16_RTOL = 1e-5, 1e-2  # B4 vs its plain version, relative L2
+STREAM_RTOL = 2e-4  # streamed digital vs ideal STHC conv (the reference test's bound)
+TIE = 1e-4  # top-two logits this close (relative to their scale) may break either way
+CLASSIFY_BATCH = 16  # clips per batch, as benchmarks/accuracy.py evaluates
+CLASSIFY_REPS = 7  # timed batches per route, after one warm-up
+STREAM_FRAMES = 512  # frames of each of the four long clips
+# the reference conv3d test sweep's shapes (tests/test_kernels.py):
+# (b, c, o, k, h, t) -> x (b, c, h, h+2, t), w (o, c, k, k, min(k, t))
+CONV_SWEEP = (
+    (1, 1, 1, 1, 6, 4), (2, 4, 6, 3, 14, 10), (1, 3, 2, 2, 9, 5), (2, 2, 5, 3, 7, 7),
+    (1, 4, 3, 1, 12, 9), (2, 1, 4, 2, 11, 6), (1, 2, 6, 3, 8, 8), (2, 3, 1, 2, 13, 4),
+)
 
 
 def _time_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -274,7 +313,6 @@ def _profile(fn) -> dict:
     """Wall time of one call, the device time of the kernels it ran (by
     name, from the profiler's CUDA events) and the device's busy share.
     Kernels on one stream do not overlap, so their sum is busy time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -283,10 +321,19 @@ def _profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return _device_time(prof, wall_ms, 1)
+
+
+def _device_time(prof, wall_ms: float, calls: int) -> dict:
+    """Per call: the device time of the kernels a profile holds, by name,
+    their sum (busy time) and its share of ``wall_ms``.  The step markers
+    a profiler schedule adds are not kernels."""
+    from torch.autograd import DeviceType
+
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
@@ -774,6 +821,296 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
     return report, rows
 
 
+def _conv_row(tag, x, w, launches, rtol, reps=20) -> dict:
+    """One B4 ``kernel:`` row: the kernel against its plain version on the
+    same inputs (bf16 inputs upcast to float32 for the plain version),
+    then both timed with CUDA events.  The plain version is one cuDNN
+    ``F.conv3d`` call (TF32 off), so its time is also the library time."""
+    from repro_torch.kernels.conv3d import kernel as conv_kernel
+    from repro_torch.kernels.conv3d import ref as conv_ref
+
+    got = conv_kernel.conv3d_cuda(x, w).float()
+    want = conv_ref.conv3d_ref(x.float(), w.float())
+    rel = _rel_l2(got, want)
+    mx = float(torch.max(torch.abs(got - want)))
+    print(
+        f"classify: B4 {tag} x {tuple(x.shape)} w {tuple(w.shape)} {x.dtype} vs plain: "
+        f"rel L2 {rel:.3g}, max abs {mx:.3g}"
+    )
+    if not (rel <= rtol and torch.isfinite(got).all()):
+        raise AssertionError(f"B4 {tag} disagrees with its plain version (rel L2 {rel:.3g})")
+    nbytes = (x.numel() + w.numel() + got.numel()) * x.element_size()
+    del got, want
+    ms = _time_ms(lambda: conv_kernel.conv3d_cuda(x, w), reps)
+    plain_ms = _time_ms(lambda: conv_ref.conv3d_ref(x, w), max(3, reps // 4))
+    rate = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+    bound, by = _bound_ms(nbytes, conv_kernel.flops(tuple(x.shape), tuple(w.shape)), rate)
+    return {
+        "name": f"conv3d{tag}",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/conv3d/csrc/conv3d.cu",
+        "replaces": "src/repro/kernels/conv3d/kernel.py:41",
+        "launches": launches,
+        "max_abs_err": mx,
+        "max_err": mx,
+        "rel_l2": rel,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": plain_ms,
+        "shape": {"x": list(x.shape), "w": list(w.shape), "dtype": str(x.dtype).removeprefix("torch.")},
+    }
+
+
+def _ties(logits: torch.Tensor) -> torch.Tensor:
+    """Rows whose top-two logits lie within ``TIE`` of their scale."""
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]) <= TIE * torch.amax(torch.abs(logits), dim=-1)
+
+
+def _same_classes(what, got, want, logits) -> int:
+    """Class predictions must match outside the near-ties of ``logits``;
+    returns the tie count."""
+    ties = _ties(logits).cpu().numpy()
+    got, want = np.asarray(got), np.asarray(want)
+    if not np.array_equal(got[~ties], want[~ties]):
+        bad = int(np.sum((got != want) & ~ties))
+        raise AssertionError(f"{what}: {bad} predictions differ outside near-ties")
+    print(f"classify: {what}: {len(got)} predictions equal outside {int(ties.sum())} near-ties")
+    return int(ties.sum())
+
+
+def _profile_steady(fn, reps: int = 5) -> dict:
+    """``_profile`` for calls of a few ms: the profiler skips one call and
+    discards a warm-up call (its first activity records can be lost), then
+    records ``reps`` calls; times are per call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=1, active=reps)) as prof:
+        for i in range(2 + reps):
+            if i == 2:
+                t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    return _device_time(prof, wall_ms, reps)
+
+
+def _timed(fn, batches) -> list[float]:
+    """One warm-up call, then one timed call per batch (host clock around
+    a call that ends in a host copy)."""
+    fn(batches[0])
+    torch.cuda.synchronize()
+    lat = []
+    for b in batches[1 : 1 + CLASSIFY_REPS]:
+        t0 = time.perf_counter()
+        fn(b)
+        lat.append(time.perf_counter() - t0)
+    return lat
+
+
+def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
+    """The paper's hybrid 3-D CNN at its full geometry (60x80x16 clips, 9
+    kernels of 30x40x8, pool (8, 8, 3), hidden 128, 4 classes), random
+    weights from a seeded generator on the card, on the synthetic-KTH
+    test split; returns the report and the B4 and B1 kernel rows."""
+    from repro_torch.configs import sthc_kth
+    from repro_torch.core import hybrid, spectral_conv
+    from repro_torch.data import kth_synthetic as kth
+    from repro_torch.kernels.conv3d import kernel as conv_kernel
+    from repro_torch.kernels.stmul import ref as stmul_ref
+    from repro_torch.launch.serve import HybridClassifierServer
+
+    cfg = sthc_kth.config()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    params = hybrid.init_params(cfg, gen, device="cuda")
+    x_test, y_test = kth.make_split("test")
+    batches = [x_test[i : i + CLASSIFY_BATCH] for i in range(0, len(y_test), CLASSIFY_BATCH)]
+    streams = np.stack([
+        kth.render_clip(label, 17, 0, kth.VideoSpec(60, 80, STREAM_FRAMES))[None]
+        for label in range(4)
+    ])
+    report = {"config": dataclasses.asdict(cfg) | {"dtype": "float32"}, "clips": len(y_test),
+              "batch": CLASSIFY_BATCH, "stream_frames": STREAM_FRAMES, "routes": {}}
+
+    def predict(impl):
+        return lambda b: hybrid.predict(params, b, cfg, impl=impl).cpu().numpy()
+
+    # the main path, counted: kernel launch counters at 0 just before it
+    conv_kernel.reset_launches()
+    stmul_kernel.reset_launches()
+    digital_calls = 0
+    with torch.no_grad():
+        servers = {
+            "server_physical": HybridClassifierServer(params, cfg, physical=True),
+            "server_ideal": HybridClassifierServer(params, cfg, physical=False),
+        }
+        routes = {impl: predict(impl) for impl in ("digital", "spectral", "sthc_physical")}
+        routes |= {name: srv.classify for name, srv in servers.items()}
+        # every route over the whole split; digital and spectral logits kept
+        logits = {
+            impl: torch.cat([hybrid.forward(params, b, cfg, impl=impl) for b in batches])
+            for impl in ("digital", "spectral")
+        }
+        digital_calls += len(batches)
+        preds = {impl: lg.argmax(-1).cpu().numpy() for impl, lg in logits.items()}
+        for name in ("sthc_physical", "server_physical", "server_ideal"):
+            preds[name] = np.concatenate([routes[name](b) for b in batches])
+        for name, p in preds.items():
+            report["routes"][name] = {"accuracy": float(np.mean(p == y_test))}
+        report["digital_vs_spectral_ties"] = _same_classes(
+            "digital vs spectral", preds["digital"], preds["spectral"], logits["digital"]
+        )
+        report["server_ideal_vs_spectral_ties"] = _same_classes(
+            "server ideal vs predict(spectral)", preds["server_ideal"], preds["spectral"],
+            logits["spectral"],
+        )
+        # batch latency per route
+        for name, fn in routes.items():
+            lat = _timed(fn, batches)
+            digital_calls += (1 + len(lat)) * (name == "digital")
+            med = float(np.median(lat))
+            report["routes"][name] |= {"latency_s": lat, "median_ms": med * 1e3,
+                                       "clips_per_s": CLASSIFY_BATCH / med}
+            print(
+                f"classify: {name:15s} median {med * 1e3:8.3f} ms (min {min(lat) * 1e3:.3f}, "
+                f"max {max(lat) * 1e3:.3f}, n={len(lat)})  {CLASSIFY_BATCH / med:10.1f} clips/s  "
+                f"accuracy {report['routes'][name]['accuracy']:.4f} (random weights)"
+            )
+        ratio = report["routes"]["digital"]["median_ms"] / report["routes"]["spectral"]["median_ms"]
+        report["digital_vs_spectral_ratio"] = ratio
+        print(f"classify: digital / spectral median batch latency {ratio:.3f}")
+        # long clips: 4 streams of STREAM_FRAMES, one per class
+        srv = servers["server_ideal"]
+        seg_preds = srv.classify_stream(streams)
+        ot = cfg.conv_out_shape[2]
+        n_seg = seg_preds.shape[1]
+        seg_ties = 0
+        for s in range(n_seg):
+            sub = streams[..., s * ot : s * ot + cfg.frames]
+            one = srv.classify(sub)
+            ties = _ties(hybrid.forward(params, sub, cfg, impl="sthc_ideal")).cpu().numpy()
+            if not np.array_equal(seg_preds[:, s][~ties], one[~ties]):
+                raise AssertionError(f"classify_stream segment {s} != classify of its sub-clip")
+            seg_ties += int(ties.sum())
+        report["stream_segments"] = n_seg
+        report["stream_segment_ties"] = seg_ties
+        print(f"classify: classify_stream: {n_seg} segments x 4 streams equal classify of "
+              f"their sub-clips outside {seg_ties} near-ties")
+        conv_d = hybrid.conv_layer_stream(params, streams, cfg, impl="digital")
+        conv_s = hybrid.conv_layer_stream(params, streams, cfg, impl="spectral")
+        digital_calls += 1
+        err = float(torch.max(torch.abs(conv_d - conv_s)) / torch.max(torch.abs(conv_d)))
+        report["stream_digital_vs_ideal_max_rel"] = err
+        print(f"classify: streamed digital (B4) vs streamed ideal STHC conv: max err / max "
+              f"{err:.3g} (bound {STREAM_RTOL:g})")
+        if not err <= STREAM_RTOL:
+            raise AssertionError(f"streamed digital vs ideal conv differ by {err:.3g}")
+        del conv_d, conv_s
+        stream_jobs = {
+            "classify_stream_physical": lambda s: servers["server_physical"].classify_stream(s),
+            "classify_stream_ideal": lambda s: servers["server_ideal"].classify_stream(s),
+            "conv_layer_stream_digital": lambda s: (
+                hybrid.conv_layer_stream(params, s, cfg, impl="digital"), torch.cuda.synchronize()),
+        }
+        for name, fn in stream_jobs.items():
+            lat = _timed(fn, [streams] * (1 + CLASSIFY_REPS))
+            digital_calls += (1 + len(lat)) * (name == "conv_layer_stream_digital")
+            med = float(np.median(lat))
+            report["routes"][name] = {"latency_s": lat, "median_ms": med * 1e3,
+                                      "frames_per_s": 4 * STREAM_FRAMES / med}
+            print(f"classify: {name:26s} median {med * 1e3:9.3f} ms (min {min(lat) * 1e3:.3f}, "
+                  f"max {max(lat) * 1e3:.3f}, n={len(lat)})  {4 * STREAM_FRAMES / med:10.1f} frames/s")
+        torch.cuda.synchronize()
+    b4 = conv_kernel.conv3d_cuda.launches
+    b1 = stmul_kernel.spectral_mac_cuda.launches
+    report["launches"] = {"conv3d": b4, "spectral_mac": b1, "digital_calls": digital_calls}
+    print(f"classify: launches conv3d {b4} (digital calls {digital_calls}), spectral_mac {b1}")
+    if b4 != digital_calls:
+        raise AssertionError(f"B4 launched {b4} times for {digital_calls} digital calls")
+    if b1 <= 0:
+        raise AssertionError("B1 was not launched by the STHC routes")
+
+    # where the time goes: five profiled calls of each route
+    with torch.no_grad():
+        for name, fn in routes.items():
+            prof = _profile_steady(lambda fn=fn: fn(batches[0]))
+            report["routes"][name]["profile"] = prof
+            busy = ("not measured" if prof["busy_share"] is None
+                    else f"{prof['device_ms']:.3f} ms ({prof['busy_share']:.1%})")
+            print(f"profile: classify {name:15s} wall {prof['wall_ms']:.3f} ms, device busy {busy}")
+            for kn, ms in prof["top_kernels_ms"]:
+                print(f"profile:   {ms:9.3f} ms  {kn}")
+
+    # B4 rows: the phase's two shapes (the batch and the streams with this
+    # run's weights), kernels_bench's C3D case in float32 and bf16, and
+    # the reference test sweep's shapes
+    w = params.conv_w.detach()
+    xb, xs = torch.from_numpy(batches[0]).cuda(), torch.from_numpy(streams).cuda()
+    rows = [
+        _conv_row(f"[{xb.shape[0]}x{'x'.join(map(str, xb.shape[2:]))}]", xb, w, b4, CONV_RTOL),
+        _conv_row(f"[{xs.shape[0]}x{'x'.join(map(str, xs.shape[2:]))}]", xs, w, b4, CONV_RTOL,
+                  reps=5),
+    ]
+    del xb, xs
+    xc = torch.randn((1, 16, 14, 14, 8), generator=gen, device="cuda")
+    wc = torch.randn((16, 16, 3, 3, 3), generator=gen, device="cuda")
+    rows.append(_conv_row("_c3d[f32]", xc, wc, b4, CONV_RTOL))
+    rows.append(_conv_row("_c3d[bf16]", xc.bfloat16(), wc.bfloat16(), b4, CONV_BF16_RTOL))
+    for b, c, o, k, h, t in CONV_SWEEP:
+        xs = torch.randn((b, c, h, h + 2, t), generator=gen, device="cuda")
+        ws = torch.randn((o, c, k, k, min(k, t)), generator=gen, device="cuda")
+        rows.append(_conv_row(f"_sweep[{b}x{c}x{h}x{h + 2}x{t},o{o},k{k}]", xs, ws, b4, CONV_RTOL))
+
+    # B1 at the classifier's shapes: the batch's spectra against a 9-kernel
+    # grating on the 60x80x16 clip's FFT grid
+    fft = spectral_conv.fft_shape_for((60, 80, 16), (30, 40, 8))
+    F = fft[0] * fft[1] * (fft[2] // 2 + 1)
+
+    def cplx(*shape):
+        return torch.complex(torch.randn(shape, generator=gen, device="cuda"),
+                             torch.randn(shape, generator=gen, device="cuda"))
+
+    xh, gr = cplx(CLASSIFY_BATCH, 1, F), cplx(9, 1, F)
+    with spectral_conv.full_precision():
+        got = stmul_kernel.spectral_mac_cuda(xh, gr, 2)
+        want = stmul_ref.spectral_mac_ref(xh, gr, 2)
+        rel = _rel_l2(torch.view_as_real(got), torch.view_as_real(want))
+        mx = float(torch.max(torch.abs(got - want)))
+        print(f"classify: B1 x {tuple(xh.shape)} grating {tuple(gr.shape)} vs plain: rel L2 "
+              f"{rel:.3g}, max abs {mx:.3g}")
+        if not rel <= MAC_RTOL:
+            raise AssertionError(f"B1 at the classifier's shapes disagrees (rel L2 {rel:.3g})")
+        ms = _time_ms(lambda: stmul_kernel.spectral_mac_cuda(xh, gr, 2), 20)
+        plain_ms = _time_ms(lambda: stmul_ref.spectral_mac_ref(xh, gr, 2), 3)
+        lib_ms = _time_ms(lambda: torch.einsum("bcf,ocf->bof", xh, gr), 20)
+    bound, by = _bound_ms((xh.numel() + gr.numel() + CLASSIFY_BATCH * 9 * F) * 8,
+                          8 * CLASSIFY_BATCH * 9 * F)
+    rows.append({
+        "name": "spectral_mac[classify]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/stmul/csrc/stmul.cu",
+        "replaces": "src/repro/kernels/stmul/kernel.py:147",
+        "launches": b1,
+        "max_abs_err": mx,
+        "max_err": mx,
+        "rel_l2": rel,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib_ms,
+        "shape": {"B": CLASSIFY_BATCH, "O": 9, "C": 1, "F": F},
+    })
+    return report, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -782,23 +1119,28 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from repro_torch.kernels.conv3d import kernel as conv_kernel
     from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
     from repro_torch.kernels.stmul import kernel, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report = {"build": phase_build({"stmul": kernel, "ssd": ssd_kernel, "flash": flash_kernel})}
+    report = {"build": phase_build({
+        "stmul": kernel, "ssd": ssd_kernel, "flash": flash_kernel, "conv3d": conv_kernel,
+    })}
     report["serve"] = phase_serve(kernel, args.seed)
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
     report["lm"], ssd_rows = phase_lm(args.seed)
     rows += ssd_rows
     report["lm_dense"], flash_rows = phase_lm_dense(args.seed)
     rows += flash_rows
+    report["classify"], classify_rows = phase_classify(args.seed, kernel)
+    rows += classify_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(
-            f"kernel: {r['name']:28s} {r['ms']:8.4f} ms (bound {r['bound_ms']:.4f} "
+            f"kernel: {r['name']:36s} {r['ms']:8.4f} ms (bound {r['bound_ms']:.4f} "
             f"{r['bound_by']}, plain {r['plain_ms']:.3f}, library "
             f"{lib}) launches {r['launches']} max_abs_err {r['max_abs_err']:.3g}"
         )

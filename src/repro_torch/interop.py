@@ -6,7 +6,8 @@ grating's fields passed as numpy arrays plus its metadata, so a test can
 hold port *queries* against reference queries on the very same recorded
 grating, apart from record parity.  :func:`mamba2_params_from_numpy`
 and :func:`transformer_params_from_numpy` load a reference Mamba-2 or
-dense-transformer parameter tree into the port's module.  Tenant kernel
+dense-transformer parameter tree into the port's module, and
+:func:`hybrid_params_from_numpy` the hybrid 3-D CNN's parameters.  Tenant kernel
 sets are numpy on both sides and need no conversion.  All take
 ``device=None`` to mean the card, as every port entry point does.
 """
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import hybrid
 from repro_torch.core.engine import FusedGrating
 from repro_torch.models import mamba2, transformer
 
@@ -121,4 +123,21 @@ def transformer_params_from_numpy(
             f"layers hold {sorted(params['layers'])}, cfg {cfg.name!r} has {sorted(fields)}"
         )
     _load(model, params, cfg, fields)
+    return model
+
+
+@torch.no_grad()
+def hybrid_params_from_numpy(
+    params: dict, cfg: hybrid.HybridConfig, device=None
+) -> hybrid.HybridCNN:
+    """The port's :class:`~repro_torch.core.hybrid.HybridCNN` holding the
+    reference hybrid's parameter dict (``conv_w``, ``conv_b``, ``fc1_w``,
+    ``fc1_b``, ``fc2_w``, ``fc2_b`` as numpy arrays, in the reference's
+    layouts: ``fc1_w`` is (features, hidden)).  Every array must have the
+    shape and dtype ``cfg`` gives it."""
+    model = hybrid.HybridCNN(cfg, resolve_device(device))
+    if set(params) != set(hybrid.param_shapes(cfg)):
+        raise ValueError(f"params hold {sorted(params)}, the hybrid has {sorted(hybrid.param_shapes(cfg))}")
+    for name in params:
+        _put(getattr(model, name), params[name], name)
     return model

@@ -24,9 +24,15 @@ query.  ``search_batch`` serves a mixed-tenant batch of long streams:
 rest of the batch delivers; ``verify_gratings`` checksums every cache
 fetch.  ``metrics()`` reports cache counters, dispatch and dedup
 counters, and measured windows/s and frames/s against the paper's
-projected loader rates.  The microbatch scheduler, the hybrid
-classifier server, the chaos seams and mesh serving come in later
-slices.
+projected loader rates.  The microbatch scheduler, the chaos seams and
+mesh serving come in later slices.
+
+:class:`HybridClassifierServer` serves the paper's hybrid 3-D CNN (§4):
+the conv layer is an STHC whose grating is recorded once, at
+construction, and every ``classify`` runs one correlate (kernel B1 on
+the card) and the digital head; ``classify_stream`` streams long clips
+through the coherence-window overlap-save path and classifies each
+training-length segment.
 
 :class:`LMServer` serves a language model greedily: one ``prefill`` of
 the prompt batch, then one ``decode_step`` per new token: Mamba-2,
@@ -52,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.core import atomic, fidelity as fidelity_mod, optics, throughput
+from repro_torch.core import atomic, fidelity as fidelity_mod, hybrid, optics, throughput
 from repro_torch.core.engine import TOPK_EMPTY_IDX, GratingCache, as_tensor, clip_keys_for
 from repro_torch.core.fidelity import FidelityPipeline
 from repro_torch.core.sthc import STHC, STHCConfig
@@ -626,6 +632,87 @@ class VideoSearchServer:
             "frames_per_s_vs_slm": fps / throughput.SLM_FPS,
             "frames_per_s_vs_hmd": fps / throughput.HMD_FPS,
         }
+
+
+# ---------------------------------------------------------------------------
+# Hybrid classifier serving (paper §4: conv optical, head digital)
+# ---------------------------------------------------------------------------
+
+
+class HybridClassifierServer:
+    """Serve the trained hybrid 3-D CNN with the STHC conv backend.
+
+    ``params`` is the :class:`~repro_torch.core.hybrid.HybridCNN` built for
+    ``cfg`` (``hybrid.init_params`` or ``interop.hybrid_params_from_numpy``);
+    it is moved to ``device`` (None = the card).  ``fidelity`` overrides
+    the ``physical`` switch's preset."""
+
+    def __init__(self, params: hybrid.HybridCNN, cfg: hybrid.HybridConfig,
+                 physical: bool = True,
+                 fidelity: FidelityPipeline | None = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        if fidelity is None:
+            fidelity = (
+                fidelity_mod.physical() if physical else fidelity_mod.ideal()
+            )
+        self.params = params.to(self.device)
+        self.sthc = STHC(STHCConfig(fidelity=fidelity, device=self.device))
+        # record once: the kernels live in the atomic medium
+        self.grating = self.sthc.record(
+            self.params.conv_w, (cfg.height, cfg.width, cfg.frames)
+        )
+
+    def _head(self, conv_out: torch.Tensor) -> torch.Tensor:
+        y = conv_out + self.params.conv_b[None, :, None, None, None]
+        return hybrid.head(self.params, y, self.cfg)
+
+    @torch.no_grad()
+    def classify(self, clips) -> np.ndarray:
+        """Class predictions (B,) of clips (B, C, H, W, frames), numpy or
+        a tensor."""
+        x = as_tensor(clips, self.device)
+        conv = self.sthc.correlate(self.grating, x)  # optical layer
+        logits = self._head(conv)  # digital layers
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    @torch.no_grad()
+    def classify_stream(self, clips, block_t: int | None = None) -> np.ndarray:
+        """Long-clip inference (paper Fig. 1C): conv streams through the
+        engine's coherence-window overlap-save path, then the digital
+        head classifies each ``cfg.frames``-long segment of the stream.
+
+        ``clips`` is (B, C, H, W, T) with arbitrary T ≥ ``cfg.frames``;
+        returns (B, n_segments) class predictions, one per training-
+        length window at stride ``ot = frames − k_t + 1``.  Segment s of
+        the streamed conv output is the one-shot conv of input frames
+        ``[s·ot, s·ot + cfg.frames)``, so each prediction matches
+        `classify` on that sub-clip (physical mode differs only in the
+        stream-global vs per-segment SLM scale).
+        """
+        cfg = self.cfg
+        if clips.shape[-1] < cfg.frames:
+            # reject before any device work: a T >= kt stream would
+            # stream-correlate fine yet still yield zero segments
+            raise ValueError(
+                f"stream of {clips.shape[-1]} frames is shorter than one "
+                f"classification window ({cfg.frames} frames)"
+            )
+        conv = self.sthc.correlate_stream(
+            self.params.conv_w,
+            as_tensor(clips, self.device),
+            cfg.frames if block_t is None else int(block_t),
+        )
+        ot = cfg.conv_out_shape[2]
+        n_seg = conv.shape[-1] // ot
+        # fold the equal-shape segments into the batch axis: one head
+        # call + one host transfer regardless of stream length
+        segs = conv[..., : n_seg * ot].reshape(conv.shape[:-1] + (n_seg, ot))
+        segs = torch.movedim(segs, -2, 0)  # segment-major
+        segs = segs.reshape((n_seg * conv.shape[0],) + tuple(conv.shape[1:-1]) + (ot,))
+        preds = torch.argmax(self._head(segs), dim=-1).reshape(n_seg, -1)
+        return preds.T.cpu().numpy()  # (B, n_seg)
 
 
 # ---------------------------------------------------------------------------

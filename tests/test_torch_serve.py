@@ -210,6 +210,10 @@ runpy.run_path(sys.argv[1], run_name="chip_smoke_module")
 bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
              or n == "repro" or n.startswith("repro."))
 assert not bad, bad
+new = ("repro_torch.kernels.conv3d.kernel", "repro_torch.kernels.conv3d.ops",
+       "repro_torch.kernels.conv3d.ref", "repro_torch.data.kth_synthetic",
+       "repro_torch.core.hybrid")
+assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
 print("isolated", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
 
