@@ -9,7 +9,13 @@ Phases, each reported on lines of its own:
 1. build   — compile the CUDA kernels (``src/repro_torch/kernels/
              stmul/csrc``, ``kernels/ssd/csrc``, ``kernels/flash/csrc``
              and ``kernels/conv3d/csrc``) with nvcc for sm_90a, one nvcc
-             per library, all started together, and load them.
+             per library, all started together, and load them; print
+             ``-Xptxas -v``'s registers, spills and stack per kernel.
+             B6's library must report, for every (dtype, head dim), the
+             dynamic shared memory ``kernel.smem_bytes`` plans (at most
+             227 KB), and its bf16 builds must hold warpgroup MMAs
+             (HGMMA, wgmma) and cp.async copies (LDGSTS) in their SASS
+             (``cuobjdump``).
 2. serve   — a VideoSearchServer at the paper geometry (60x80 frames,
              four tenants of 9x1x30x40x8 kernels, 64-frame windows, 4
              windows per chunk) answers six 1024-frame requests, two
@@ -51,11 +57,17 @@ Phases, each reported on lines of its own:
              ``LMServer.generate`` with a KV cache of prompt + new tokens,
              on the same two batches, timed and profiled as in ``lm``;
              the flash-attention kernel's (B6) launch counter must read
-             28 x the prefills run.  B6 is held against its plain version
-             on layer 0's q, k, v of both batches (relative L2 <= 1e-2:
-             the plain version rounds q·scale to bf16), and in float32
-             on the reference test sweep's shapes and the smoke config's
-             head dim 24 (relative L2 <= 1e-5, max abs <= 3e-5); timed
+             28 x the prefills run.  B6 in bf16 (the wgmma build)
+             is held against its plain version on layer 0's q, k, v of
+             both batches and on a bf16 sweep (ragged 37, 130 and 1000,
+             Sq != Sk both ways, GQA groups 1, 2 and 6, head dims 16, 24,
+             32 and 128, both mask settings): relative L2 <= 1e-2 (the
+             plain version rounds q·scale to bf16), and against the
+             plain version on the same inputs upcast to float32 the
+             worst row's relative L2 <= 1e-2 and max abs <= 5e-3
+             max|v|; in float32 (the FMA build) on the reference test
+             sweep's shapes and the smoke config's head dim 24
+             (relative L2 <= 1e-5, max abs <= 3e-5); timed
              beside its plain version, one
              ``scaled_dot_product_attention`` call as the library
              yardstick, and its bound (bytes at 3.35 TB/s or the causal
@@ -100,6 +112,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -117,7 +130,27 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 MAC_RTOL = 1e-5
 SSD_RTOL = 1e-5
 FLASH_BF16_RTOL = 1e-2  # the plain version rounds q·scale to bf16 before the dot
+# B6 in bf16 against the plain version on the same inputs upcast to float32
+# (no q·scale rounding, p not rounded): the kernel rounds each p (relative
+# 2^-9) and each output (2^-9) to bf16, so a right row is off by about
+# 2^-9 of its norm and no element by more than 2^-8·max|v| (3.9e-3);
+# a wrong row (mask, kv head, stale tile) is off by O(1) of its norm,
+# which the whole tensor's relative L2 dilutes to ~3e-3 at 98,304 rows
+FLASH_BF16_ROW_RTOL = 1e-2  # worst row's relative L2
+FLASH_BF16_ABS_V = 5e-3  # max abs error, in units of max|v|
 FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-5, 3e-5
+# B6 bf16 sweep (B, Sq, Sk, H, G, D, causal): ragged lengths (37, 130,
+# 1000: not multiples of the 64-row tile), Sq != Sk both ways, GQA groups
+# H/G of 1, 2 and 6, head dims 16, 24 (padded to 32 in shared memory), 32
+# and 128, both mask settings
+FLASH_BF16_SWEEP = (
+    (2, 37, 37, 4, 4, 16, True), (2, 37, 37, 4, 2, 16, False),
+    (1, 40, 100, 4, 2, 16, False), (1, 40, 100, 4, 2, 16, True),
+    (2, 96, 96, 8, 4, 32, True), (2, 71, 71, 6, 1, 32, False), (1, 100, 40, 4, 2, 32, True),
+    (2, 64, 64, 2, 2, 24, True), (2, 130, 130, 6, 1, 24, False),
+    (1, 40, 100, 12, 2, 128, False), (1, 300, 300, 4, 4, 128, True),
+    (2, 1000, 1000, 12, 2, 128, True), (2, 1000, 1000, 12, 2, 128, False),
+)
 LM_RTOL = 1e-4
 SERVE_REPS = 7  # timed calls per serving mode, after one warm-up
 LM_REPS = 5  # timed calls per LM batch and kind, after one warm-up
@@ -165,6 +198,43 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
+def _cuda_tool(name: str) -> str | None:
+    found = shutil.which(name)
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
+    return cand if os.path.exists(cand) else None
+
+
+def _demangle(names: list[str]) -> dict[str, str]:
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    lines = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+    return dict(zip(names, lines)) if len(lines) == len(names) else {n: n for n in names}
+
+
+def _ptxas_by_function(log: str) -> list[dict]:
+    """``-Xptxas -v``'s registers, spills and stack, per entry function."""
+    funcs, cur, props = [], None, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"function": ln.split("'")[1]}
+            funcs.append(cur)
+        elif "Function properties for" in ln:
+            props = ln.split("Function properties for")[1].strip()
+        elif cur is not None and "spill stores" in ln and props == cur["function"]:
+            nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
+            cur["stack_bytes"], cur["spill_store_bytes"], cur["spill_load_bytes"] = nums[:3]
+        elif cur is not None and "registers" in ln:
+            words = ln.replace(",", " ").split()
+            cur["registers"] = int(words[words.index("registers") - 1])
+    names = _demangle([f["function"] for f in funcs])
+    for f in funcs:
+        f["function"] = names[f["function"]]
+    return funcs
+
+
 def phase_build(libs: dict) -> dict:
     """Build every kernel library at once (one nvcc each, in parallel)."""
     from concurrent.futures import ThreadPoolExecutor
@@ -174,12 +244,55 @@ def phase_build(libs: dict) -> dict:
         infos = {name: f.result() for name, f in futs.items()}
     report = {}
     for name, info in infos.items():
-        ptxas = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln or "spill" in ln]
+        funcs = _ptxas_by_function(info["log"])
         print(f"build: {name} {info['seconds']:.2f} s nvcc sm_90a -> {os.path.relpath(info['path'], ROOT)}")
-        for ln in ptxas:
-            print(f"build:   {ln}")
-        report[name] = {"seconds": info["seconds"], "ptxas": ptxas}
+        for f in funcs:
+            print(
+                f"build:   {f['function']}: {f.get('registers')} registers, "
+                f"{f.get('spill_store_bytes')} bytes spill stores, "
+                f"{f.get('spill_load_bytes')} bytes spill loads, {f.get('stack_bytes')} bytes stack"
+            )
+        report[name] = {"seconds": info["seconds"], "path": info["path"], "ptxas": funcs}
     return report
+
+
+def check_flash_build(flash_kernel, so_path: str) -> dict:
+    """B6's builds as compiled: every (dtype, head dim)'s dynamic shared
+    memory from the library equals ``kernel.smem_bytes`` and fits one
+    block's 227 KB; in the SASS (``cuobjdump``), every bf16 build issues
+    warpgroup tensor-core MMAs (HGMMA, wgmma) and asynchronous copies
+    (LDGSTS, cp.async)."""
+    plan = {}
+    for dtype in flash_kernel.DTYPES:
+        for d in flash_kernel.HEAD_DIMS:
+            want, got = flash_kernel.smem_bytes(dtype, d), flash_kernel.smem_bytes_built(dtype, d)
+            route = flash_kernel.ROUTES[(dtype, d)]
+            print(f"build: flash ({str(dtype).removeprefix('torch.')}, D {d}) -> {route} kernel, "
+                  f"{got} bytes dynamic shared memory")
+            if got != want or not 0 < got <= flash_kernel.SMEM_PER_BLOCK:
+                raise AssertionError(f"flash ({dtype}, {d}): library plans {got} bytes, kernel.py {want}")
+            plan[f"{dtype}/{d}"] = {"route": route, "smem_bytes": got}
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        print("build: flash SASS: cuobjdump not found, instructions not counted")
+        return {"plan": plan, "sass": None}
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+            counts[fn] = dict.fromkeys(("HGMMA", "HMMA", "LDGSTS", "MUFU.EX2", "FFMA"), 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                if f" {op}" in ln:
+                    counts[fn][op] += 1
+    names = _demangle(list(counts))
+    wg = {names[f]: c for f, c in counts.items() if "flash_wgmma_kernel" in names[f]}
+    for f, c in wg.items():
+        print(f"build: flash SASS {f}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    if len(wg) != len(flash_kernel.HEAD_DIMS) or not all(c["HGMMA"] and c["LDGSTS"] for c in wg.values()):
+        raise AssertionError(f"the bf16 flash builds lack wgmma or cp.async: {wg}")
+    return {"plan": plan, "sass": wg}
 
 
 def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
@@ -733,23 +846,44 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
             return m.layers[0].qkv(m.embed.to(m.cfg.compute_dtype)[toks], pos)
 
     def check(tag, q, k, v, causal, rtol, atol=None):
+        """B6 against its plain version; in bf16 also the worst row and the
+        max abs error against the plain version on float32 inputs."""
         o_k = flash_kernel.flash_fwd_cuda(q, k, v, causal)
         o_p = flash_ref.flash_ref(q, k, v, causal=causal)
         rel = _rel_l2(o_k.float(), o_p.float())
         mx = float(torch.max(torch.abs(o_k.float() - o_p.float())))
+        ok = rel <= rtol and (atol is None or mx <= atol) and bool(torch.isfinite(o_k).all())
+        res = {"rel_l2": rel, "max_abs_err": mx}
+        line = f"rel L2 {rel:.3g}, max abs {mx:.3g}"
+        if q.dtype == torch.bfloat16:
+            D = q.shape[-1]
+            o_f = flash_ref.flash_ref(q.float(), k.float(), v.float(), causal=causal)
+            err = (o_k.float() - o_f).reshape(-1, D)
+            row = float(torch.max(
+                torch.linalg.vector_norm(err, dim=1)
+                / torch.linalg.vector_norm(o_f.reshape(-1, D), dim=1).clamp_min(1e-30)
+            ))
+            abs_f = float(torch.max(torch.abs(err)))
+            vmax = float(torch.max(torch.abs(v.float())))
+            ok = ok and row <= FLASH_BF16_ROW_RTOL and abs_f <= FLASH_BF16_ABS_V * vmax
+            res.update(worst_row_rel_l2=row, max_abs_err_f32=abs_f, max_abs_v=vmax)
+            line += (f"; vs plain on float32 inputs: worst row rel L2 {row:.3g} "
+                     f"(<= {FLASH_BF16_ROW_RTOL:g}), max abs {abs_f:.3g} = {abs_f / vmax:.3g} max|v| "
+                     f"(<= {FLASH_BF16_ABS_V:g})")
+            del o_f, err
         print(
             f"lm_dense: B6 {tag} q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} "
-            f"causal={causal} vs plain: rel L2 {rel:.3g}, max abs {mx:.3g}"
+            f"causal={causal} vs plain: {line}"
         )
-        if not (rel <= rtol and (atol is None or mx <= atol) and torch.isfinite(o_k).all()):
-            raise AssertionError(f"B6 {tag} disagrees with its plain version (rel {rel:.3g}, max {mx:.3g})")
-        return rel, mx
+        if not ok:
+            raise AssertionError(f"B6 {tag} disagrees with its plain version: {res}")
+        return res
 
     # B6 at the main path's shapes: layer 0's real q, k, v of both batches
     rows = []
     for Bb, S, _ in LM_BATCHES:
         q, k, v = layer0_qkv(model, prompts_by[(Bb, S)])
-        rel, mx = check(f"[{Bb}x{S}]", q, k, v, True, FLASH_BF16_RTOL)
+        res = check(f"[{Bb}x{S}]", q, k, v, True, FLASH_BF16_RTOL)
         G = k.shape[2]
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         ms = _time_ms(lambda: flash_kernel.flash_fwd_cuda(q, k, v, True), 20)
@@ -762,12 +896,15 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
         rows.append({
             "name": f"flash_fwd[{Bb}x{S}]",
             "route": "cuda",
-            "source": "src/repro_torch/kernels/flash/csrc/flash.cu",
+            "source": "src/repro_torch/kernels/flash/csrc/flash_wgmma.cu",
             "replaces": "src/repro/kernels/flash/kernel.py:94",
             "launches": launches,
-            "max_abs_err": mx,
-            "max_err": mx,
-            "rel_l2": rel,
+            "max_abs_err": res["max_abs_err"],
+            "max_err": res["max_abs_err"],
+            "rel_l2": res["rel_l2"],
+            "worst_row_rel_l2": res["worst_row_rel_l2"],
+            "max_abs_err_f32": res["max_abs_err_f32"],
+            "max_abs_v": res["max_abs_v"],
             "ms": ms,
             "kernel_ms": ms,
             "plain_ms": plain_ms,
@@ -778,6 +915,17 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
                       "dtype": "bfloat16", "causal": True},
         })
         del q, k, v, qt, kt, vt
+
+    # the bf16 build on the sweep's shapes
+    bf16 = {}
+    for B, Sq, Sk, H, G, D, causal in FLASH_BF16_SWEEP:
+        q, k, v = (
+            torch.randn((B, S, n, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for S, n in ((Sq, H), (Sk, G), (Sk, G))
+        )
+        tag = f"bf16[{B}x{Sq}x{Sk},h{H},g{G},d{D},{'causal' if causal else 'full'}]"
+        bf16[tag] = check(tag, q, k, v, causal, FLASH_BF16_RTOL)
+    report["b6_bf16_checks"] = bf16
 
     # float32 builds: the reference test sweep's shapes (head dims 16 and
     # 32, both mask settings, ragged lengths, the 40-vs-100 cross case)
@@ -1129,6 +1277,7 @@ def main() -> int:
     report = {"build": phase_build({
         "stmul": kernel, "ssd": ssd_kernel, "flash": flash_kernel, "conv3d": conv_kernel,
     })}
+    report["build"]["flash_checks"] = check_flash_build(flash_kernel, report["build"]["flash"]["path"])
     report["serve"] = phase_serve(kernel, args.seed)
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
     report["lm"], ssd_rows = phase_lm(args.seed)

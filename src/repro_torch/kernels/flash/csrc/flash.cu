@@ -1,21 +1,24 @@
-// Flash-attention forward (kernel B6) for Hopper (sm_90a), plain C entry
-// point, bound with ctypes by repro_torch/kernels/flash/kernel.py.
+// Flash-attention forward (kernel B6) for Hopper (sm_90a), float32 only,
+// and the library's plain C entry points, bound with ctypes by
+// repro_torch/kernels/flash/kernel.py.  bfloat16 calls go to the
+// tensor-core kernel of flash_wgmma.cu; this file's FMA kernel serves only
+// float32, where the 1e-5 bound against the plain version leaves no room
+// for bf16 or TF32 tensor-core products.
 //
-// Replaces: src/repro/kernels/flash/kernel.py, flash_fwd_pallas (body
+// Replaces: src/repro/kernels/flash/kernel.py:94, flash_fwd_pallas (body
 // _flash_fwd_kernel).  Plain version: repro_torch/kernels/flash/ref.py,
 // flash_ref (the port's common.blockwise_attention).
 //
 // What it computes.  q (B, Sq, H, D), k and v (B, Sk, G, D), G | H, all
-// of one dtype T (float32 or bfloat16), contiguous; query head h reads kv
-// head h / (H / G).  Per (b, h) and query row i:
+// float32, contiguous; query head h reads kv head h / (H / G).  Per
+// (b, h) and query row i:
 //   s_j  = (q_i · k_j) · scale                  float32 dot, scale after
 //   s_j  = −1e30 where j ≥ Sk, or (causal) i < j
 //   o_i  = Σ_j e^{s_j − m} · v_j / max(Σ_j e^{s_j − m}, 1e-30)
 // with the online-softmax state (m, l, acc) carried across kv tiles: m
-// starts at −1e30 (never −inf, so a fully masked tile gives no NaN), the
-// p of the p·v product is rounded to T first, l sums the unrounded p,
-// and o is written in T.  Causal masking is top-left aligned with no
-// query offset, as in the Pallas kernel.
+// starts at −1e30 (never −inf, so a fully masked tile gives no NaN).
+// Causal masking is top-left aligned with no query offset, as in the
+// Pallas kernel.
 //
 // Design.  The TPU kernel ran the kv axis as the innermost, sequential
 // grid dimension and carried (m, l, acc) in VMEM scratch from one grid
@@ -36,25 +39,19 @@
 // score rows are its output rows, so the rescale by e^{m_old − m_new}
 // needs no exchange.
 //
-// Shared memory, float32 (operands are widened once, when staged):
-// Q (64 × (D+4)), K (64 × (D+4)), V (64 × D), and P (64 × 68), which
-// reuses K's space once the scores are taken.  Rows of Q, K and P are
-// read as float4 along their length by 8 lanes at a time; the +4 pad
-// makes those 8 rows start in 8 distinct 16-byte bank groups (D/4 + 1
-// is odd for every D here, a multiple of 8).  At D = 128: 84 KB, two
-// blocks per SM.
+// Shared memory: Q (64 × (D+4)), K (64 × (D+4)), V (64 × D), and P
+// (64 × 68), which reuses K's space once the scores are taken.  Rows of
+// Q, K and P are read as float4 along their length by 8 lanes at a
+// time; the +4 pad makes those 8 rows start in 8 distinct 16-byte bank
+// groups (D/4 + 1 is odd for every D here, a multiple of 8).  At D = 128:
+// 98 KB, two blocks per SM.
 //
-// Bound.  At the serving shapes (bf16, D 128, 12 query and 2 kv heads,
-// 4 × 2048, causal) attention does 4·D FLOP per (query, key) pair of the
-// causal triangle, 51.6 GFLOP, against 58.7 MB of q, k, v and o: ~880
-// FLOP per byte, far above the card's bf16 ridge (~295), so it is bound
-// by operations.  This first kernel runs them on the float32
-// FMA pipes (no tensor cores): 32 FMA per three 16-byte shared loads in
-// the score product and 64 per five (D = 128) in the p·v product keep
-// it on the FMA pipe.  mma.sync / wgmma on bf16 tiles, TMA loads and a
-// double-buffered K/V ring are later work.
+// Bound.  Float32 has no dense tensor-core path that keeps 1e-5 (TF32
+// keeps about three decimal digits; 3×TF32 tiles would be the step), so
+// both products run on the float32 FMA pipes, 67 TFLOP/s: 32 FMA per
+// three 16-byte shared loads in the score product and 64 per five
+// (D = 128) in the p·v product keep it on that pipe.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -64,36 +61,6 @@ constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // keys per kv tile
 constexpr int LDP = BK + 4;  // P row stride
 constexpr float NEG = -1e30f;
-
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  static constexpr int kVec = 4;  // elements per 16-byte load
-  __device__ static void widen(const uint4& u, float* dst) {
-    *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(&u);
-  }
-  __device__ static float round(float x) { return x; }
-  __device__ static float store(float x) { return x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void widen(const uint4& u, float* dst) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    float4 lo, hi;
-    float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-    lo.x = a.x; lo.y = a.y; lo.z = b.x; lo.w = b.y;
-    hi.x = c.x; hi.y = c.y; hi.z = d.x; hi.w = d.y;
-    reinterpret_cast<float4*>(dst)[0] = lo;
-    reinterpret_cast<float4*>(dst)[1] = hi;
-  }
-  __device__ static float round(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
-  __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16_rn(x); }
-};
 
 template <int D>
 struct Plan {
@@ -114,24 +81,24 @@ struct Plan {
 };
 
 // rows [row0, row0 + 64) of a (·, rows, heads, D) tensor at head `head`
-// into shared rows of stride ld, float32; rows at or past `n` are zero
-template <typename T, int D>
-__device__ void stage(float* dst, int ld, const T* __restrict__ src, long long row0, int n,
+// into shared rows of stride ld; rows at or past `n` are zero
+template <int D>
+__device__ void stage(float* dst, int ld, const float* __restrict__ src, long long row0, int n,
                       int heads, int head, int tid) {
-  constexpr int V = Io<T>::kVec, CPR = D / V;
+  constexpr int CPR = D / 4;
   for (int e = tid; e < 64 * CPR; e += kThreads) {
     const int row = e / CPR, ch = e % CPR;
-    uint4 u = make_uint4(0, 0, 0, 0);
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row0 + row < n)
-      u = *reinterpret_cast<const uint4*>(src + ((row0 + row) * heads + head) * D + ch * V);
-    Io<T>::widen(u, dst + row * ld + ch * V);
+      u = *reinterpret_cast<const float4*>(src + ((row0 + row) * heads + head) * D + ch * 4);
+    *reinterpret_cast<float4*>(dst + row * ld + ch * 4) = u;
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Sq, int Sk, int H, int G, int causal, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, int Sq, int Sk, int H, int G, int causal, float scale) {
   using K = Plan<D>;
   constexpr int LDQ = K::LDQ, CPT = K::CPT;
   extern __shared__ float4 smem4[];
@@ -148,11 +115,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int qt = gridDim.z - 1 - blockIdx.z;  // heaviest tiles first
   const int g = h / (H / G);
   const int q0 = qt * BQ;
-  const T* qb = q + b * Sq * H * D;
-  const T* kb = k + b * Sk * G * D;
-  const T* vb = v + b * Sk * G * D;
+  const float* qb = q + b * Sq * H * D;
+  const float* kb = k + b * Sk * G * D;
+  const float* vb = v + b * Sk * G * D;
 
-  stage<T, D>(Qs, LDQ, qb, q0, Sq, H, h, tid);
+  stage<D>(Qs, LDQ, qb, q0, Sq, H, h, tid);
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -169,8 +136,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int kt = 0; kt < n_tiles; ++kt) {
     const int k0 = kt * BK;
-    stage<T, D>(Ks, LDQ, kb, k0, Sk, G, g, tid);
-    stage<T, D>(Vs, D, vb, k0, Sk, G, g, tid);
+    stage<D>(Ks, LDQ, kb, k0, Sk, G, g, tid);
+    stage<D>(Vs, D, vb, k0, Sk, G, g, tid);
     __syncthreads();
 
     // scores of rows 4r + i, keys c + 8j
@@ -237,7 +204,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) Ps[(4 * r + i) * LDP + c + 8 * j] = Io<T>::round(s[i][j]);
+      for (int j = 0; j < 8; ++j) Ps[(4 * r + i) * LDP + c + 8 * j] = s[i][j];
     __syncthreads();
 
     // acc += P V over the tile's 64 keys
@@ -271,7 +238,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     __syncthreads();  // the next tile restages K (and P's space) and V
   }
 
-  T* ob = o + b * Sq * H * D;
+  float* ob = o + b * Sq * H * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * r + i;
@@ -279,56 +246,80 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int u = 0; u < CPT; ++u)
-      ob[((long long)qpos * H + h) * D + K::col(c, u)] = Io<T>::store(acc[i][u] / den);
+      ob[((long long)qpos * H + h) * D + K::col(c, u)] = acc[i][u] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
                    int H, int G, int causal, float scale, cudaStream_t stream) {
   constexpr size_t smem = Plan<D>::bytes;
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)Plan<D>::bytes);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+    return cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                 cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   }();
   if (attr != cudaSuccess) return attr;
   const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, G, causal, scale);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Sq, Sk, H, G, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t by_dim(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
-                   int H, int G, int D, int causal, float scale, cudaStream_t s) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+                       int H, int G, int D, int causal, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // llama3, nemotron smoke
-    case 24: return launch<T, 24>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // qwen2 smoke
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // granite smoke
-    case 128: return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // every full width
+    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // llama3, nemotron smoke
+    case 24: return launch<24>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // qwen2 smoke
+    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // granite smoke
+    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // every full width
     default: return cudaErrorInvalidValue;
+  }
+}
+
+int smem_f32(int D) {
+  switch (D) {
+    case 16: return (int)Plan<16>::bytes;
+    case 24: return (int)Plan<24>::bytes;
+    case 32: return (int)Plan<32>::bytes;
+    case 128: return (int)Plan<128>::bytes;
+    default: return -1;
   }
 }
 
 }  // namespace
 
+namespace flash_wgmma {  // flash_wgmma.cu
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
+                        int H, int G, int D, int causal, float scale, cudaStream_t s);
+int smem_bytes(int D);
+}  // namespace flash_wgmma
+
 extern "C" {
 
 // o (B, Sq, H, D) from q (B, Sq, H, D), k and v (B, Sk, G, D), all of
-// dtype 0 = float32 or 1 = bfloat16, contiguous, 16-byte aligned.
+// dtype 0 = float32 (this file's FMA kernel) or 1 = bfloat16 (the
+// tensor-core kernel of flash_wgmma.cu), contiguous, 16-byte aligned.
 // Returns a cudaError_t; cudaErrorInvalidValue for a (dtype, D) that has
-// no instantiation here.
+// no instantiation.
 int flash_fwd(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk,
               int H, int G, int D, int dtype, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return by_dim<float>(q, k, v, o, B, Sq, Sk, H, G, D, causal, scale, s);
-  if (dtype == 1) return by_dim<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, G, D, causal, scale, s);
+  if (dtype == 0) return launch_f32(q, k, v, o, B, Sq, Sk, H, G, D, causal, scale, s);
+  if (dtype == 1) return flash_wgmma::launch_bf16(q, k, v, o, B, Sq, Sk, H, G, D, causal, scale, s);
   return cudaErrorInvalidValue;
+}
+
+// dynamic shared memory, in bytes, of the (dtype, D) build flash_fwd
+// launches; -1 where there is none
+int flash_smem_bytes(int dtype, int D) {
+  if (dtype == 0) return smem_f32(D);
+  if (dtype == 1) return flash_wgmma::smem_bytes(D);
+  return -1;
 }
 
 }  // extern "C"
