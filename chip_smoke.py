@@ -26,12 +26,20 @@ Phases, each reported on lines of its own:
              after; every kernel of each rung must have run.  The ideal
              tenant's scores are checked against direct conv3d
              correlation on a short clip, and one call of each rung is
-             profiled (host clip hashing, device busy time by kernel).
+             profiled (host clip hashing, device busy time by kernel,
+             every kernel of the repository's own listed).  Then a
+             ``max_buffer_windows = 8`` server searches numpy streams of
+             4096 and 8192 frames: its peak device memory may grow by
+             less than a quarter of the shorter stream's bytes, and its
+             detections must equal the unbounded server's bitwise.
 3. kernels — run every kernel at the shapes the serving batch gives it
              and hold it against its plain torch version on the card:
-             the spectral MACs (B1 v2/v1, B2 f32/bf16 arena) to relative
-             L2 <= 1e-5, the top-K readout (B3, k = 1 and 3, rows with
-             NaN, -inf, ties and signed zeros) bitwise.  Times each with
+             B1 v2/v1 to relative L2 <= 1e-5; B2 f32/bf16 at the pooled
+             rung's shape, with irregular unsorted offsets into a 64-row
+             arena and at an odd F, bitwise; the top-K readout (B3, k = 1
+             and 3 at 36 rows, k = 1 at 9 and 18; rows with NaN, -inf,
+             ties and signed zeros, then inputs with those on the slice
+             boundaries of the host plan) bitwise.  Times each with
              CUDA events beside its plain version, a one-call library
              yardstick and its bound (bytes at 3.35 TB/s or float32
              operations at 67 TFLOP/s, whichever is larger).
@@ -74,6 +82,11 @@ Phases, each reported on lines of its own:
              triangle's FLOPs at 989 TFLOP/s bf16); a 2-layer float32
              model at full width must give the same last logits by the
              kernel route and the plain route (relative L2 <= 1e-4).
+             Decode attention at layer 0's decode shapes: the bf16-GEMM
+             route against the ``_dot_f32`` route on the same tensors
+             (each product's float32 output within 1e-5, the bf16 output
+             within 1e-2), no cache-sized float32 copy, and decode
+             ms/token of ``generate`` on each route, in turns.
 6. classify — the paper's hybrid 3-D CNN at its full geometry (60x80x16
              clips, 9 kernels of 30x40x8, pool (8, 8, 3), hidden 128, 4
              classes; random weights from a seeded generator on the card)
@@ -109,6 +122,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -152,6 +166,17 @@ FLASH_BF16_SWEEP = (
     (2, 1000, 1000, 12, 2, 128, True), (2, 1000, 1000, 12, 2, 128, False),
 )
 LM_RTOL = 1e-4
+# substrings of the hand-written kernels' names, listed in every profile
+OWN_KERNELS = ("topk", "mac_", "ssd", "flash", "conv3d")
+# Decode attention's bf16-GEMM route against the _dot_f32 route on
+# the same tensors.  Each product's float32 output: the products are exact
+# in float32 on both routes and only the sum order differs.  The whole
+# bf16 output: p and the output are rounded to bf16 (2^-9 relative), so a
+# sum-order difference can flip a rounding; a wrong head or layout is off
+# by O(1)
+DECODE_DOT_RTOL = 1e-5
+DECODE_OUT_RTOL = 1e-2
+MEM_STREAM_FRAMES = (4096, 8192)  # a cursor stream, then one twice as long
 SERVE_REPS = 7  # timed calls per serving mode, after one warm-up
 LM_REPS = 5  # timed calls per LM batch and kind, after one warm-up
 LM_BATCHES = ((4, 2048, 32), (2, 1000, 8))  # (prompts, prompt tokens, new tokens)
@@ -182,6 +207,25 @@ def _time_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
+    graph, replayed and timed with CUDA events, so the host's cost of
+    launching each call is not in it (it is in ``_time_ms`` when a call
+    takes the device less time than the host takes to launch it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = _time_ms(graph.replay, 5) / reps
+    del graph
+    return ms
 
 
 def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -313,15 +357,16 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
 
     rows = []
 
-    def row(name, fn, plain, library, check, nbytes, flops, launches_of, reps=20):
+    def row(name, fn, plain, library, check, nbytes, flops, launches_of, reps=20, graph=False):
         out = fn()
         exp = plain()
         err, ok = check(out, exp)
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version ({err})")
-        ms = _time_ms(fn, reps)
+        timer = _graph_ms if graph else _time_ms
+        ms = timer(fn, reps)
         plain_ms = _time_ms(plain, 3)
-        lib_ms = _time_ms(library, reps) if library is not None else None
+        lib_ms = timer(library, reps) if library is not None else None
         bound, by = _bound_ms(nbytes, flops)
         r = {
             "name": name,
@@ -339,6 +384,10 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
             "bound_by": by,
             "library_ms": lib_ms,
         }
+        if graph:  # the same calls launched one by one, host time included
+            r["host_ms"] = _time_ms(fn, reps)
+            print(f"kernels: {name} {ms:.4f} ms on the device (CUDA graph of {reps} calls), "
+                  f"{r['host_ms']:.4f} ms a call launched one by one")
         rows.append(r)
         del out, exp
 
@@ -364,29 +413,56 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
             )
     del x, gr
 
-    # B2: pooled rung, 4 encoded streams x 4 windows against an 18-row arena
+    def mac_bits(out, exp):
+        mx = float(torch.max(torch.abs(out - exp)))
+        return {"max_abs_err": mx}, _bits_equal(torch.view_as_real(out), torch.view_as_real(exp))
+
+    # B2: pooled rung, 4 encoded streams x 4 windows against an 18-row
+    # arena; then irregular, unsorted offsets into a 64-row arena, and an
+    # odd F (rows that are not 16-byte aligned); bitwise in every case
     x = cplx(16, C, F)
-    offs = [0, 0, 9, 9] * 4
-    for dtype, name in ((torch.float32, "spectral_mac_grouped[f32]"),
-                        (torch.bfloat16, "spectral_mac_grouped[bf16]")):
-        pre = torch.randn((18, C, F), generator=g, device=dev).to(dtype)
-        pim = torch.randn((18, C, F), generator=g, device=dev).to(dtype)
-        sel = torch.complex(pre.float(), pim.float())[
-            torch.as_tensor(offs, device=dev)[:, None] + torch.arange(O, device=dev)[None]
-        ]
-        nbytes = (x.numel() * 8 + 2 * pre.numel() * pre.element_size()
-                  + 16 * O * F * 8)
-        with spectral_conv.full_precision():
-            row(
-                name,
-                lambda: kernel.spectral_mac_grouped_cuda(x, pre, pim, offs, O),
-                lambda: ref.spectral_mac_grouped_ref(x, pre, pim, offs, O),
-                lambda: torch.einsum("bcf,bocf->bof", x, sel),
-                mac_check, nbytes, 8 * 16 * O * C * F,
-                ("spectral_mac_grouped", "src/repro/kernels/stmul/kernel.py:248"),
-            )
-        del pre, pim, sel
+    b2_cases = (
+        ("", [0, 0, 9, 9] * 4, 18, F),
+        (",irregular", [37, 3, 55, 12, 0, 41, 29, 8, 50, 19, 33, 1, 46, 24, 5, 14], 64, F),
+        (",odd F", [0, 0, 9, 9] * 4, 18, F - 1),
+    )
+    for tag, offs, n_rows, Fx in b2_cases:
+        xx = x if Fx == F else x[:, :, :Fx].contiguous()
+        for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            pre = torch.randn((n_rows, C, Fx), generator=g, device=dev).to(dtype)
+            pim = torch.randn((n_rows, C, Fx), generator=g, device=dev).to(dtype)
+            sel = torch.complex(pre.float(), pim.float())[
+                torch.as_tensor(offs, device=dev)[:, None] + torch.arange(O, device=dev)[None]
+            ]
+            used = len({o + j for o in offs for j in range(O)})
+            nbytes = (xx.numel() * 8 + 2 * used * C * Fx * pre.element_size()
+                      + 16 * O * Fx * 8)
+            with spectral_conv.full_precision():
+                row(
+                    f"spectral_mac_grouped[{dname}{tag}]",
+                    lambda: kernel.spectral_mac_grouped_cuda(xx, pre, pim, offs, O),
+                    lambda: ref.spectral_mac_grouped_ref(xx, pre, pim, offs, O),
+                    lambda: torch.einsum("bcf,bocf->bof", xx, sel),
+                    mac_bits, nbytes, 8 * 16 * O * C * Fx,
+                    ("spectral_mac_grouped", "src/repro/kernels/stmul/kernel.py:248"),
+                )
+            del pre, pim, sel
+        del xx
     del x
+
+    # B2 beyond the video rung's C = 1: three channels (x staged beside
+    # the arena), nine kernels in two chunks of o rows, even and odd F
+    for Fx in (10_000, 10_001):
+        xx = cplx(4, 3, Fx)
+        for dtype in (torch.float32, torch.bfloat16):
+            pre = torch.randn((12, 3, Fx), generator=g, device=dev).to(dtype)
+            pim = torch.randn((12, 3, Fx), generator=g, device=dev).to(dtype)
+            err, ok = mac_bits(kernel.spectral_mac_grouped_cuda(xx, pre, pim, [3, 0, 3, 1], O),
+                               ref.spectral_mac_grouped_ref(xx, pre, pim, [3, 0, 3, 1], O))
+            print(f"kernels: B2 x (4, 3, {Fx}) {dtype} against a 12-row arena, 9 outputs: "
+                  f"{'bitwise' if ok else 'DIFFERS'}")
+            if not ok:
+                raise AssertionError(f"B2 at C = 3, F = {Fx}, {dtype} differs ({err})")
 
     # B3: pooled readout of 4 streams x 9 kernels; rows with NaN, -inf,
     # exact ties and signed zeros
@@ -409,17 +485,64 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
         mx = float(torch.max(torch.abs(out[0][both] - exp[0][both]))) if both.any() else 0.0
         return {"max_abs_err": mx}, s_ok and i_ok
 
-    for k in (1, 3):
+    # the pooled rung's 36 rows at k = 1 and 3, the sequential rung's 9
+    # (one stream's group) and 18 (two streams) at k = 1
+    for R_, k in ((R, 1), (R, 3), (9, 1), (18, 1)):
+        v = vals[:R_]
         row(
-            f"topk_readout[k={k}]",
-            lambda k=k: kernel.topk_readout_cuda(vals, gidx, k),
-            lambda k=k: ref.topk_readout_ref(vals, gidx, k),
-            lambda k=k: torch.topk(vals_tiefree, k, dim=-1),
-            topk_check, R * L * 4 + L * 4 + R * k * 8, 0,
-            ("topk_readout", "src/repro/kernels/stmul/kernel.py:434"),
+            f"topk_readout[k={k}]" if R_ == R else f"topk_readout[k={k},R={R_}]",
+            lambda k=k, v=v: kernel.topk_readout_cuda(v, gidx, k),
+            lambda k=k, v=v: ref.topk_readout_ref(v, gidx, k),
+            lambda k=k, R_=R_: torch.topk(vals_tiefree[:R_], k, dim=-1),
+            topk_check, R_ * L * 4 + L * 4 + R_ * k * 8, 0,
+            ("topk_readout", "src/repro/kernels/stmul/kernel.py:434"), graph=True,
         )
+    # tie runs, NaN and -inf stretches and signed zeros on the slice
+    # boundaries the host plan picks, bitwise against the plain version,
+    # and every other list width K (k = 2, 8, 16, 32) on six of the rows
+    for R_, k in ((R, 1), (R, 3), (9, 1), (18, 1), (6, 2), (6, 8), (6, 16), (6, 32)):
+        v = _straddling_scores(kernel.topk_plan(R_, L), R_, L, g)
+        out = kernel.topk_readout_cuda(v, gidx, k)
+        err, ok = topk_check(out, ref.topk_readout_ref(v, gidx, k))
+        print(f"kernels: B3 ({R_}, {L}) k={k} with ties, NaN, -inf and +-0 on the "
+              f"{kernel.topk_plan(R_, L)} slice boundaries: {'bitwise' if ok else 'DIFFERS'}")
+        if not ok:
+            raise AssertionError(f"B3 ({R_}, {L}) k={k} differs on slice boundaries ({err})")
+        del v, out
     torch.cuda.synchronize()
     return rows
+
+
+def _straddling_scores(plan, R, L, g) -> torch.Tensor:
+    """(R, L) random scores with, around one slice boundary of ``plan``
+    per row (rows take the boundaries in turn): a run of equal maxima
+    across it, NaN just after or just before it, a row of -inf with two
+    finite scores across it, a run of +0 / -0 maxima across it, and a
+    -inf stretch across it with equal maxima at both ends."""
+    S, n = plan
+    v = torch.randn((R, L), generator=g, device="cuda")
+    cuts = [s * n for s in range(1, S)] or [L // 2]
+    for r in range(R):
+        c = cuts[r % len(cuts)]
+        kind = r % 6
+        if kind == 0:
+            v[r, max(c - 3, 0) : c + 3] = 10.0
+        elif kind == 1:
+            v[r, c] = float("nan")
+        elif kind == 2:
+            v[r, c - 1] = float("nan")
+        elif kind == 3:
+            v[r] = float("-inf")
+            v[r, c - 1] = v[r, min(c + 1, L - 1)] = 1.0
+        elif kind == 4:
+            v[r] = -1.0 - torch.abs(v[r])
+            v[r, max(c - 2, 0) : c + 2] = torch.tensor([0.0, -0.0, 0.0, -0.0], device="cuda")[
+                : min(c + 2, L) - max(c - 2, 0)]
+        else:
+            lo, hi = max(c - 5000, 1), min(c + 5000, L - 1)
+            v[r, lo:hi] = float("-inf")
+            v[r, lo - 1] = v[r, hi] = 9.0
+    return v
 
 
 def _profile(fn) -> dict:
@@ -448,7 +571,9 @@ def _device_time(prof, wall_ms: float, calls: int) -> dict:
         if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     busy_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    # the eight longest, then every kernel of this repository's own
+    top = ranked[:8] + [kv for kv in ranked[8:] if any(m in kv[0] for m in OWN_KERNELS)]
     return {
         "wall_ms": wall_ms,
         "device_ms": busy_ms if by_name else None,
@@ -617,8 +742,48 @@ def phase_serve(kernel, seed: int) -> dict:
         raise AssertionError(f"ideal scores off direct correlation by {rel:.3g}")
     report["ideal_vs_direct_max_rel"] = rel
     print(f"serve: ideal tenant vs direct conv3d max rel {rel:.3g}")
+    report["cursor_memory"] = _cursor_memory(tenants, server, rng)
     report["frames_per_request"] = 1024
     return report
+
+
+def _cursor_memory(tenants, unbounded, rng) -> dict:
+    """Host residency of cursor streams: a ``max_buffer_windows = 8``
+    pooled search (an ideal and a physical tenant on one numpy stream)
+    keeps the stream on the host, so its peak device memory must not grow
+    by a quarter of the stream's bytes when the stream doubles; its
+    detections must equal the unbounded server's bitwise."""
+    bounded = _server(tenants, max_buffer_windows=8)
+    warm = rng.rand(1, 1, 60, 80, 1024).astype(np.float32)
+    bounded.search_batch([("A", warm), ("C", warm)])  # record, plan, pool
+    unbounded.search_batch([("A", warm), ("C", warm)])
+    peaks, out = {}, {}
+    for T in MEM_STREAM_FRAMES:
+        clip = rng.rand(1, 1, 60, 80, T).astype(np.float32)
+        reqs = [("A", clip), ("C", clip)]
+        for name, srv in (("bounded", bounded), ("unbounded", unbounded)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            res = srv.search_batch(reqs)
+            torch.cuda.synchronize()
+            peaks[f"{name}_{T}"] = torch.cuda.max_memory_allocated()
+            out[name] = res
+        for a, b in zip(out["bounded"], out["unbounded"]):
+            if not (np.array_equal(a["scores"].view(np.int32), b["scores"].view(np.int32))
+                    and np.array_equal(a["peak_frame"], b["peak_frame"])):
+                raise AssertionError(f"cursor detections at {T} frames differ from the unbounded call")
+        print(f"serve: cursor {T}-frame numpy stream, max_buffer_windows 8: peak device memory "
+              f"{peaks[f'bounded_{T}'] / 2**20:.1f} MiB (unbounded {peaks[f'unbounded_{T}'] / 2**20:.1f} "
+              f"MiB); detections equal the unbounded call's bitwise")
+        del clip, reqs, out["bounded"], out["unbounded"]
+    t0, t1 = MEM_STREAM_FRAMES
+    grew = peaks[f"bounded_{t1}"] - peaks[f"bounded_{t0}"]
+    limit = 60 * 80 * t0 * 4 / 4  # a quarter of the shorter stream's bytes
+    print(f"serve: cursor peak grew by {grew / 2**20:.2f} MiB from {t0} to {t1} frames "
+          f"(limit {limit / 2**20:.2f} MiB)")
+    if not grew < limit:
+        raise AssertionError(f"cursor peak memory grew by {grew} bytes (limit {limit:.0f})")
+    return {"peak_bytes": peaks, "growth_bytes": grew, "limit_bytes": limit}
 
 
 def _ssd_cost(Bb, L, H, G, P, N, Q) -> tuple[float, float]:
@@ -816,6 +981,97 @@ def _attn_cost(B, Sq, Sk, H, G, D, causal, itemsize) -> tuple[float, float]:
     return nbytes, 4 * D * B * H * pairs
 
 
+@contextlib.contextmanager
+def _dot_f32_decode():
+    """Decode attention on its ``_dot_f32`` route (the cache widened to
+    float32) whatever the tensors, for the comparison with the bf16-GEMM
+    route."""
+    from repro_torch.models import common
+
+    route = common._bf16_gemm_route
+    common._bf16_gemm_route = lambda q, k, v: False
+    try:
+        yield
+    finally:
+        common._bf16_gemm_route = route
+
+
+def _decode_route_check(cfg, qkv, batch, server, prompts, batches) -> dict:
+    """At layer 0's decode shapes (the last prompt position's q against
+    a cache of prompt + new tokens), decode attention's bf16-GEMM route
+    against its ``_dot_f32`` route on the same tensors: each
+    product's float32 output within ``DECODE_DOT_RTOL``, the bf16 output
+    within ``DECODE_OUT_RTOL``, and no cache-sized float32 copy (the
+    route's extra peak memory below the cache's float32 bytes).  Then
+    decode ms/token of ``generate`` on each route, in turns."""
+    from repro_torch.models import common
+
+    Bb, S, n_new = batch
+    q, k, v = qkv
+    M, G, D, H = S + n_new, k.shape[2], k.shape[3], q.shape[2]
+    R = H // G
+    kc = torch.zeros((Bb, M, G, D), dtype=k.dtype, device="cuda")
+    vc = torch.zeros_like(kc)
+    kc[:, :S], vc[:, :S] = k, v
+    q1 = q[:, -1:].contiguous()
+    kv_len = torch.full((Bb,), S, dtype=torch.int32, device="cuda")
+    res = {}
+    with torch.inference_mode():
+        for name, ctx in (("gemm", contextlib.nullcontext()), ("dot_f32", _dot_f32_decode())):
+            with ctx:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = common.decode_attention(q1, kc, vc, kv_len)
+                torch.cuda.synchronize()
+                res[name] = (out, torch.cuda.max_memory_allocated() - base)
+        rel_out = _rel_l2(res["gemm"][0].float(), res["dot_f32"][0].float())
+        qf = (q1 * (1.0 / D ** 0.5)).reshape(Bb, 1, G, R, D)
+        s_g = common._cache_dot(qf.permute(0, 2, 3, 1, 4).reshape(Bb, G, R, D), kc, True)
+        s_d = common._dot_f32("bqgrd,bkgd->bgrqk", qf, kc)
+        rel_s = _rel_l2(s_g.reshape(s_d.shape), s_d)
+        p = torch.exp(s_d - s_d.amax(-1, keepdim=True)).to(vc.dtype)
+        o_g = common._cache_dot(p.reshape(Bb, G, R, M), vc, False)
+        o_d = common._dot_f32("bgrqk,bkgd->bgrqd", p, vc)
+        rel_o = _rel_l2(o_g.reshape(o_d.shape), o_d)
+    cache_f32 = kc.numel() * 4
+    extra = {name: r[1] for name, r in res.items()}
+    print(
+        f"lm_dense: decode route: attention q {tuple(q1.shape)} cache {tuple(kc.shape)} bf16, "
+        f"bf16-GEMM vs _dot_f32 route: q.k rel L2 {rel_s:.3g}, p.v rel L2 {rel_o:.3g} "
+        f"(<= {DECODE_DOT_RTOL:g}), output rel L2 {rel_out:.3g} (<= {DECODE_OUT_RTOL:g}); "
+        f"extra peak memory {extra['gemm'] / 2**20:.2f} MiB vs {extra['dot_f32'] / 2**20:.2f} MiB "
+        f"(the cache in float32: {cache_f32 / 2**20:.2f} MiB)"
+    )
+    if not (rel_s <= DECODE_DOT_RTOL and rel_o <= DECODE_DOT_RTOL and rel_out <= DECODE_OUT_RTOL):
+        raise AssertionError(f"decode routes disagree: q.k {rel_s:.3g}, p.v {rel_o:.3g}, out {rel_out:.3g}")
+    if not extra["gemm"] < cache_f32:
+        raise AssertionError(f"the bf16-GEMM route allocated {extra['gemm']} bytes, a cache-sized copy")
+    # decode ms/token on each route, in turns (gemm, dot, dot, gemm, ...)
+    pre = batches[f"{Bb}x{S}+{n_new}"]["prefill_median_ms"]
+    full = {"gemm": [], "dot_f32": []}
+    for name in ("gemm", "dot_f32", "dot_f32", "gemm", "gemm", "dot_f32"):
+        with contextlib.nullcontext() if name == "gemm" else _dot_f32_decode():
+            t0 = time.perf_counter()
+            server.generate(prompts, n_new)
+            full[name].append(time.perf_counter() - t0)
+    dec = {n: (float(np.median(t)) * 1e3 - pre) / (n_new - 1) for n, t in full.items()}
+    print(f"lm_dense: decode route: {Bb}x{S}+{n_new}: {dec['gemm']:.3f} ms/token on the bf16-GEMM "
+          f"route, {dec['dot_f32']:.3f} ms/token on the _dot_f32 route (3 calls each, in turns)")
+    # the device's share, which the host's load does not move: one
+    # profiled generate on each route
+    dev_ms = {}
+    for name in ("gemm", "dot_f32"):
+        with contextlib.nullcontext() if name == "gemm" else _dot_f32_decode():
+            dev_ms[name] = _profile(lambda: server.generate(prompts, n_new))["device_ms"]
+    shown = {n: "not measured" if v is None else f"{v:.2f} ms" for n, v in dev_ms.items()}
+    print(f"lm_dense: decode route: device time of one generate {Bb}x{S}+{n_new}: {shown['gemm']} on the "
+          f"bf16-GEMM route, {shown['dot_f32']} on the _dot_f32 route")
+    return {"qk_rel_l2": rel_s, "pv_rel_l2": rel_o, "out_rel_l2": rel_out,
+            "extra_peak_bytes": extra, "cache_f32_bytes": cache_f32,
+            "decode_ms_per_token": dec, "generate_device_ms": dev_ms}
+
+
 def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
     """Dense-transformer LM serving at qwen2-1.5b's published config;
     returns the report and the B6 kernel rows."""
@@ -844,6 +1100,12 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
             B, S = toks.shape
             pos = torch.arange(S, device="cuda")[None].expand(B, S)
             return m.layers[0].qkv(m.embed.to(m.cfg.compute_dtype)[toks], pos)
+
+    report["decode_route"] = _decode_route_check(
+        cfg, layer0_qkv(model, prompts_by[LM_BATCHES[0][:2]]), LM_BATCHES[0],
+        LMServer(cfg, model, max_len=sum(LM_BATCHES[0][1:]), device="cuda"),
+        prompts_by[LM_BATCHES[0][:2]], report["batches"],
+    )
 
     def check(tag, q, k, v, causal, rtol, atol=None):
         """B6 against its plain version; in bf16 also the worst row and the

@@ -13,7 +13,8 @@
   are stacked on the batch axis, so one ``rfftn`` and one kernel launch
   cover a whole chunk.  ``osave_max_buffer_windows`` feeds longer
   streams through a :class:`~repro_torch.core.spectral_conv.StreamCursor`
-  at constant peak memory, equal to one-shot.
+  at constant peak memory, equal to one-shot: a numpy or CPU stream
+  stays on the host there, and only each segment crosses to the device.
 * **Pooled serving** (``query_many`` / ``query_stream_many``) packs the
   resident gratings of a pool group into one ``(ΣO, C, FH, FW, FTr)``
   arena and answers a mixed-tenant batch with one FFT, one grouped MAC
@@ -66,6 +67,56 @@ def as_tensor(x, device, dtype: torch.dtype = torch.float32) -> Tensor:
             x = np.array(x)  # torch wraps only writable, contiguous buffers
         x = torch.from_numpy(x)
     return torch.as_tensor(x).to(device=device, dtype=dtype)
+
+
+def host_stream(x, device) -> Tensor:
+    """A stream as a float32 tensor where it lives: a numpy array or a
+    CPU tensor stays on the host (without a copy when it is float32
+    already), any other tensor goes to ``device``.  The engine moves a
+    host stream to ``device`` whole, or one cursor segment at a time."""
+    if isinstance(x, np.ndarray) or (isinstance(x, Tensor) and x.device.type == "cpu"):
+        return as_tensor(x, "cpu")
+    return as_tensor(x, device)
+
+
+def stack_streams(xs: Sequence[Tensor], device) -> Tensor:
+    """Concatenate streams on the batch axis where they live: on the host
+    when every one is there, else on ``device``."""
+    if not all(x.device.type == "cpu" for x in xs):
+        xs = [as_tensor(x, device) for x in xs]
+    return xs[0] if len(xs) == 1 else torch.cat(list(xs), dim=0)
+
+
+class _SegmentUploader:
+    """Moves cursor segments of a host stream to the device: each segment
+    is staged in one of two pinned host buffers and copied with
+    ``non_blocking=True`` on the current stream, so the copy of segment
+    i + 1 overlaps the kernels of segment i.  A buffer is refilled only
+    after the event recorded behind its last copy has completed.  A
+    segment already on the device, or a device that is the host, passes
+    through ``as_tensor``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._bufs: list[Tensor | None] = [None, None]
+        self._done: list = [None, None]
+        self._next = 0
+
+    def __call__(self, seg: Tensor) -> Tensor:
+        if self.device.type != "cuda" or seg.device.type != "cpu":
+            return as_tensor(seg, self.device)
+        i, self._next = self._next, 1 - self._next
+        if self._done[i] is not None:
+            self._done[i].synchronize()  # the last copy out of buffer i has ended
+        n = seg.numel()
+        if self._bufs[i] is None or self._bufs[i].numel() < n:
+            self._bufs[i] = torch.empty(n, dtype=torch.float32, pin_memory=True)
+        staged = self._bufs[i][:n].view(seg.shape)
+        staged.copy_(seg)
+        out = staged.to(self.device, non_blocking=True)
+        self._done[i] = torch.cuda.Event()
+        self._done[i].record()
+        return out
 
 
 def _nbytes(t: Tensor | None) -> int:
@@ -613,7 +664,7 @@ class QueryEngine:
         the (B, O, H−kh+1, W−kw+1, T−kt+1) volume."""
         if grating.ker_shape is None:
             raise ValueError("grating lacks ker_shape; re-record before streaming")
-        x = self._as_input(x)
+        x = host_stream(x, self.device)
         kh, kw, kt = grating.ker_shape
         oh, ow, _ = grating.out_shape
         frame_hw = (oh + kh - 1, ow + kw - 1)
@@ -638,18 +689,19 @@ class QueryEngine:
         )
         out_shape = (oh, ow, plan.n_valid)
         if mbw is None or plan.n_blocks <= mbw:
-            out = self._osave(x, window_fn, None, plan=plan, **static)
+            out = self._osave(self._as_input(x), window_fn, None, plan=plan, **static)
             if readout_k is not None:
                 return TopKDetections(out[0], out[1], out_shape)
             return out
         cursor = spectral_conv.StreamCursor(plan, mbw)
-        x_scale = _stream_scale(x) if grating.encode else None
+        x_scale = self._host_scale(x) if grating.encode else None
+        upload = _SegmentUploader(self.device)
         outs, nv_locals, t0s = [], [], []
         for seg in cursor:
             seg_plan = _segment_plan(seg, plan, kt)
             outs.append(
                 self._osave(
-                    x[..., seg.t0 : seg.t1], window_fn, x_scale, plan=seg_plan, **static
+                    upload(x[..., seg.t0 : seg.t1]), window_fn, x_scale, plan=seg_plan, **static
                 )
             )
             nv_locals.append(seg_plan.n_valid)
@@ -669,6 +721,11 @@ class QueryEngine:
     def _max_buffer_windows(self, override: int | None) -> int | None:
         mbw = override if override is not None else self.config.osave_max_buffer_windows
         return None if mbw is None else max(int(mbw), 1)
+
+    def _host_scale(self, x: Tensor) -> Tensor:
+        """The stream-global SLM scale, taken where the stream lives (a max
+        is exact, so it is bitwise the device's), on the device."""
+        return _stream_scale(x).to(self.device)
 
     def stream_plan_for(
         self, grating: FusedGrating, n_frames: int, chunk_windows: int | None = None
@@ -871,7 +928,7 @@ class QueryEngine:
         clip-dedup, the stream cursor and the fused readout as in
         :meth:`query_many` / :meth:`query_stream`.  Each request's output
         equals ``query_stream(grating_i, x_i)``."""
-        requests = [(g, self._as_input(x)) for g, x in requests]
+        requests = [(g, host_stream(x, self.device)) for g, x in requests]
         groups = self._group_requests(requests, stream=True)
         keys = self._clip_ids(requests, clip_keys, dedup)
         results: list = [None] * len(requests)
@@ -905,7 +962,7 @@ class QueryEngine:
             self._count_pooled(sum(int(xj.shape[0]) for xj in xs), sum(nbs))
             max_row = max(lay.row_of) if lay.row_of else 0
             pool_re, pool_im = self._padded_arena(pool, max_row, lay.n_out)
-            x = ux[0] if len(ux) == 1 else torch.cat(ux, dim=0)
+            x = stack_streams(ux, self.device)
             plan = self.stream_plan_for(g0, x.shape[-1], chunk_windows)
             mbw = self._max_buffer_windows(max_buffer_windows)
             window_fn = self._pooled_window_fn(
@@ -916,7 +973,7 @@ class QueryEngine:
             )
             stream_out = (oh, ow, plan.n_valid)
             if mbw is None or plan.n_blocks <= mbw:
-                out = self._osave(x, window_fn, None, plan=plan, **static)
+                out = self._osave(self._as_input(x), window_fn, None, plan=plan, **static)
                 if readout_k is None:
                     outs = [out[b0 : b0 + nb, oo : oo + o] for b0, nb, oo, o in splits]
                 else:
@@ -930,7 +987,8 @@ class QueryEngine:
                     ]
             else:
                 cursor = spectral_conv.StreamCursor(plan, mbw)
-                x_scale = _stream_scale(x) if g0.encode else None
+                x_scale = self._host_scale(x) if g0.encode else None
+                upload = _SegmentUploader(self.device)
                 seg_outs, nv_locals, t0s = [], [], []
                 for seg in cursor:
                     seg_plan = _segment_plan(seg, plan, kt)
@@ -939,7 +997,8 @@ class QueryEngine:
                     )
                     seg_outs.append(
                         self._osave(
-                            x[..., seg.t0 : seg.t1], seg_fn, x_scale, plan=seg_plan, **static
+                            upload(x[..., seg.t0 : seg.t1]), seg_fn, x_scale, plan=seg_plan,
+                            **static,
                         )
                     )
                     nv_locals.append(seg_plan.n_valid)

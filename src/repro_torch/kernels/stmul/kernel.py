@@ -20,6 +20,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -28,15 +29,37 @@ from repro_torch.kernels._build import I32, I64, VP, CudaLibrary
 Tensor = torch.Tensor
 
 TOPK_MAX_K = 32  # per-thread candidate buffer of the readout kernel
-MAC_THREADS = 256  # threads per block of the MAC kernels (one per bin)
+MAC_THREADS = 256  # threads per block of B1 (one per bin)
+MAC_GROUPED_MAX_ROWS = 256  # B2's batch rows: its offsets travel in a kernel parameter
+TOPK_THREADS = 256  # threads per block of the readout's first pass
+TOPK_FILL_BLOCKS = 4 * 132  # first-pass blocks that fill an H100: four per SM
+TOPK_MIN_PER_THREAD = 16  # scores each first-pass thread reads, at least
+
+
+def topk_plan(rows: int, L: int) -> tuple[int, int]:
+    """B3's split of the score axis: ``(S, n)``, S slices of n scores per
+    row (the last one shorter), slice s covering ``[s·n, min((s+1)·n, L))``.
+
+    ``rows · S`` reaches ``TOPK_FILL_BLOCKS`` unless that would give a
+    thread fewer than ``TOPK_MIN_PER_THREAD`` scores, in which case the
+    slices stay at that minimum length.  n is a multiple of 4, so every
+    slice starts on a 16-byte boundary of its row (and of the matrix when
+    L % 4 == 0)."""
+    rows, L = int(rows), int(L)
+    if rows < 1 or L < 1:
+        raise ValueError(f"no scores to split: rows={rows}, L={L}")
+    want = -(-TOPK_FILL_BLOCKS // rows)
+    n = max(-(-L // want), TOPK_THREADS * TOPK_MIN_PER_THREAD)
+    n = -(-n // 4) * 4
+    return -(-L // n), n
 
 _LIB = CudaLibrary(
     "stmul",
     Path(__file__).resolve().parent / "csrc",
     {
         "stmul_mac": [VP, VP, VP, I32, I32, I32, I64, I32, I32, VP],
-        "stmul_mac_grouped": [VP, VP, VP, VP, VP, I32, I32, I64, I32, I32, I32, VP],
-        "stmul_topk": [VP, VP, VP, VP, I32, I64, I32, VP],
+        "stmul_mac_grouped": [VP, VP, VP, VP, VP, I32, I32, I64, I32, I32, VP],
+        "stmul_topk": [VP, VP, VP, VP, VP, I32, I64, I32, I32, I64, VP],
     },
 )
 build = _LIB.build
@@ -101,14 +124,18 @@ def spectral_mac_grouped_cuda(
             f"o_start + n_out reads rows up to {max(offs) + n_out} of an "
             f"arena of {rows}"
         )
-    if not (0 < B <= 65535 and 0 < n_out <= 65535):
-        raise ValueError(f"B={B}, n_out={n_out} outside the kernel's grid limits")
-    off = torch.tensor(offs, dtype=torch.int32, device=x.device)
+    if not (0 < B <= MAC_GROUPED_MAX_ROWS and n_out > 0):
+        raise ValueError(
+            f"B={B}, n_out={n_out}: the kernel takes 1..{MAC_GROUPED_MAX_ROWS} rows"
+        )
+    # host int32 offsets: the C side copies them into the kernel's
+    # parameter block, so no device copy precedes the launch
+    off = np.asarray(offs, dtype=np.int32)
     y = torch.empty((B, n_out, F), dtype=torch.complex64, device=x.device)
     rc = _LIB.lib().stmul_mac_grouped(
-        x.data_ptr(), pool_re.data_ptr(), pool_im.data_ptr(), off.data_ptr(),
+        x.data_ptr(), pool_re.data_ptr(), pool_im.data_ptr(), off.ctypes.data,
         y.data_ptr(), B, C, F, n_out, int(pool_re.dtype == torch.bfloat16),
-        MAC_THREADS, _build.stream(),
+        _build.stream(),
     )
     _build.check(rc, "stmul_mac_grouped")
     _build.count(spectral_mac_grouped_cuda)
@@ -119,7 +146,9 @@ def topk_readout_cuda(vals: Tensor, gidx: Tensor, k: int) -> tuple[Tensor, Tenso
     """B3: per row of ``vals`` (R, L) float32 the k best (score, index)
     pairs, ``gidx`` (L,) int32 the shared global positions.  Returns
     (R, k) float32 scores and int32 indices, bitwise equal to
-    :func:`repro_torch.kernels.stmul.ref.topk_select`."""
+    :func:`repro_torch.kernels.stmul.ref.topk_select`.  Two launches
+    (per-slice partial top-k over :func:`topk_plan`'s slices, then a
+    per-row merge) count as one call."""
     _build.require(vals, "vals", torch.float32, 2)
     _build.require(gidx, "gidx", torch.int32, 1)
     R, L = vals.shape
@@ -134,9 +163,12 @@ def topk_readout_cuda(vals: Tensor, gidx: Tensor, k: int) -> tuple[Tensor, Tenso
     ix = torch.empty((R, k), dtype=torch.int32, device=vals.device)
     if R == 0:
         return s, ix
+    S, n = topk_plan(R, L)
+    # pass 1's (R, S, k) pairs and (R, S) NaN flags, read by pass 2
+    ws = torch.empty(R * S * (2 * k + 1), dtype=torch.int32, device=vals.device)
     rc = _LIB.lib().stmul_topk(
-        vals.data_ptr(), gidx.data_ptr(), s.data_ptr(), ix.data_ptr(), R, L, k,
-        _build.stream(),
+        vals.data_ptr(), gidx.data_ptr(), s.data_ptr(), ix.data_ptr(), ws.data_ptr(),
+        R, L, k, S, n, _build.stream(),
     )
     _build.check(rc, "stmul_topk")
     _build.count(topk_readout_cuda)

@@ -59,7 +59,15 @@ import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.core import atomic, fidelity as fidelity_mod, hybrid, optics, throughput
-from repro_torch.core.engine import TOPK_EMPTY_IDX, GratingCache, as_tensor, clip_keys_for
+from repro_torch.core import spectral_conv
+from repro_torch.core.engine import (
+    TOPK_EMPTY_IDX,
+    GratingCache,
+    as_tensor,
+    clip_keys_for,
+    host_stream,
+    stack_streams,
+)
 from repro_torch.core.fidelity import FidelityPipeline
 from repro_torch.core.sthc import STHC, STHCConfig
 from repro_torch.launch.resilience import ServingError, TenantQuarantined
@@ -435,7 +443,9 @@ class VideoSearchServer:
         # one composition
         order = sorted(groups.items(), key=lambda kv: (kv[0][0], str(kv[0][1:])))
         tens = [tenants[key[0]] for key, _ in order]
-        # each distinct clip object crosses to the device once
+        # each distinct clip object crosses to the device once; a stream
+        # that goes through the cursor stays on the host, and the engine
+        # moves it one segment at a time
         on_device: dict[int, torch.Tensor] = {}
 
         def dev(clip):
@@ -444,12 +454,13 @@ class VideoSearchServer:
                 t = on_device[id(clip)] = as_tensor(clip, self.device)
             return t
 
-        stacks = [
-            dev(requests[idxs[0]][1])
-            if len(idxs) == 1
-            else torch.cat([dev(requests[i][1]) for i in idxs], dim=0)
-            for _, idxs in order
-        ]
+        def stack(idxs, ten):
+            clips = [requests[i][1] for i in idxs]
+            if self._through_cursor(ten, clips[0].shape[-1]):
+                return stack_streams([host_stream(c, self.device) for c in clips], self.device)
+            return dev(clips[0]) if len(clips) == 1 else torch.cat([dev(c) for c in clips])
+
+        stacks = [stack(idxs, ten) for (_, idxs), ten in zip(order, tens)]
 
         if pooled:
             t0 = time.perf_counter()
@@ -578,6 +589,17 @@ class VideoSearchServer:
                 b += nb
         return results
 
+    def _through_cursor(self, ten: _Tenant, n_frames: int) -> bool:
+        """Whether a tenant group's stream of ``n_frames`` needs more than
+        ``max_buffer_windows`` windows, so the engine's cursor serves it."""
+        mbw = self.cfg.max_buffer_windows
+        if mbw is None:
+            return False
+        plan = spectral_conv.stream_plan(
+            int(n_frames), ten.kt, self.cfg.window_frames, self.cfg.chunk_windows
+        )
+        return plan.n_blocks > max(int(mbw), 1)
+
     @staticmethod
     def _readout(fmaps) -> list[tuple[np.ndarray, np.ndarray]]:
         """The stitched-volume readout shared by both rungs: per group,
@@ -701,7 +723,7 @@ class HybridClassifierServer:
             )
         conv = self.sthc.correlate_stream(
             self.params.conv_w,
-            as_tensor(clips, self.device),
+            host_stream(clips, self.device),
             cfg.frames if block_t is None else int(block_t),
         )
         ot = cfg.conv_out_shape[2]

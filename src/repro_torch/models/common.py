@@ -154,6 +154,27 @@ def blockwise_attention(
     return out.reshape(B, Sq, H, Dv).to(q.dtype)
 
 
+def _cache_dot(a: Tensor, cache: Tensor, transpose: bool) -> Tensor:
+    """Per kv head g, ``a[:, g] @ cache[:, :, g]ᵀ`` (``transpose``) or
+    ``a[:, g] @ cache[:, :, g]``: a (B, G, n, ·) bf16, cache (B, M, G, D)
+    bf16 → (B, G, n, M or D) float32.  One bf16 GEMM with a float32
+    output per head (``bmm``'s ``out_dtype``), on a strided view of the
+    cache (row stride G·D, unit column stride) that cuBLAS takes as it
+    is: the cache is never copied or widened."""
+    outs = []
+    for g in range(cache.shape[2]):
+        c = cache[:, :, g]
+        b = c.transpose(1, 2) if transpose else c
+        outs.append(torch.bmm(a[:, g], b, out_dtype=torch.float32))
+    return torch.stack(outs, dim=1)
+
+
+def _bf16_gemm_route(q: Tensor, k: Tensor, v: Tensor) -> bool:
+    """Decode attention's products run as bf16 GEMMs: a bf16 cache on
+    the card (the CPU has no ``bmm`` with ``out_dtype``)."""
+    return k.device.type == "cuda" and q.dtype == k.dtype == v.dtype == torch.bfloat16
+
+
 def decode_attention(
     q: Tensor,
     k: Tensor,
@@ -164,6 +185,12 @@ def decode_attention(
     """Single-query attention over a KV cache, in one block (the
     reference leaves it to XLA; here it is plain torch on both devices).
 
+    A bf16 cache on the card goes through bf16 GEMMs with float32
+    outputs (:func:`_cache_dot`), as the reference keeps its dot inputs
+    in the cache dtype; elsewhere both products run through
+    :func:`_dot_f32`.  bf16 products are exact in float32, so the two
+    routes differ only in the order of the float32 sums.
+
     q: (B, 1, H, Dq); k: (B, M, G, Dq); v: (B, M, G, Dv); kv_len: (B,)
     valid lengths.  Returns (B, 1, H, Dv) in q's dtype."""
     B, Sq, H, Dq = q.shape
@@ -172,13 +199,22 @@ def decode_attention(
     Dv = v.shape[-1]
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(Dq)
     qf = (q * scale).reshape(B, Sq, G, R, Dq)
-    s = _dot_f32("bqgrd,bkgd->bgrqk", qf, k)
+    gemm = _bf16_gemm_route(q, k, v)
+    if gemm:
+        qg = qf.permute(0, 2, 3, 1, 4).reshape(B, G, R * Sq, Dq)
+        s = _cache_dot(qg, k, transpose=True).reshape(B, G, R, Sq, M)
+    else:
+        s = _dot_f32("bqgrd,bkgd->bgrqk", qf, k)
     valid = torch.arange(M, device=q.device)[None, :] < kv_len[:, None]  # (B, M)
     s = torch.where(valid[:, None, None, None, :], s, NEG)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = _dot_f32("bgrqk,bkgd->bgrqd", p.to(v.dtype), v)
+    if gemm:
+        pg = p.to(v.dtype).reshape(B, G, R * Sq, M)
+        out = _cache_dot(pg, v, transpose=False).reshape(B, G, R, Sq, Dv)
+    else:
+        out = _dot_f32("bgrqk,bkgd->bgrqd", p.to(v.dtype), v)
     out = out / torch.clamp(l, min=1e-30)
     out = out.permute(0, 3, 1, 2, 4)  # (B, Sq, G, R, Dv)
     return out.reshape(B, Sq, H, Dv).to(q.dtype)

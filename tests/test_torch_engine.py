@@ -155,6 +155,92 @@ def test_query_stream_matches_reference_chunked_and_unbounded(name, store, tol, 
     assert torch.equal(t, det.index % vol.shape[-1])
 
 
+class _Moves:
+    """Spies on what a streaming call moves to the engine's device: the
+    whole-stream ``_as_input`` and each cursor segment's copy."""
+
+    def __init__(self, monkeypatch):
+        self.whole, self.segments = [], []
+        as_input = QueryEngine._as_input
+        upload = t_engine._SegmentUploader.__call__
+
+        def spy_input(eng, x):
+            self.whole.append(_nbytes(x))
+            return as_input(eng, x)
+
+        def spy_upload(up, seg):
+            self.segments.append(_nbytes(seg))
+            return upload(up, seg)
+
+        monkeypatch.setattr(QueryEngine, "_as_input", spy_input)
+        monkeypatch.setattr(t_engine._SegmentUploader, "__call__", spy_upload)
+
+
+def _nbytes(x) -> int:
+    return int(np.asarray(x).nbytes) if isinstance(x, np.ndarray) else x.numel() * x.element_size()
+
+
+@pytest.mark.parametrize("kind", ["numpy", "torch_cpu"])
+def test_cursor_moves_one_segment_per_step(kind, kernels, monkeypatch, rng):
+    """A host stream through the cursor stays on the host: the engine's
+    device receives one segment per step (never the whole stream), and
+    the detections equal the unbounded call's bitwise and the
+    reference's cursor (numpy, host-side scale) within 1e-5."""
+    re, te = engines("physical")
+    g_r = re.record(jnp.asarray(kernels), SIG)
+    g_t = te.record(kernels, SIG)
+    clips = rng.rand(2, 1, 20, 24, 100).astype(np.float32)
+    x = clips if kind == "numpy" else torch.from_numpy(clips)
+    whole = te.query_stream(g_t, x, readout_k=3)
+    mbw = 2
+    cursor = t_engine.spectral_conv.StreamCursor(te.stream_plan_for(g_t, clips.shape[-1]), mbw)
+    seg_bytes = clips[..., : cursor.peak_buffer_frames].nbytes
+    assert len(cursor) > 2 and seg_bytes < clips.nbytes
+    moves = _Moves(monkeypatch)
+    det = te.query_stream(g_t, x, max_buffer_windows=mbw, readout_k=3)
+    assert moves.whole == [] and len(moves.segments) == len(cursor)
+    assert max(moves.segments) <= seg_bytes
+    assert torch.equal(det.scores, whole.scores) and torch.equal(det.index, whole.index)
+    check_peaks(det, re.query_stream(g_r, clips, max_buffer_windows=mbw, readout_k=3), 1e-5)
+    # the stitched volume through the cursor too
+    vol = te.query_stream(g_t, x, max_buffer_windows=mbw)
+    assert max(moves.segments) <= seg_bytes and moves.whole == []
+    assert torch.equal(vol, te.query_stream(g_t, clips))
+
+
+@pytest.mark.parametrize("kind", ["numpy", "torch_cpu"])
+def test_pooled_cursor_moves_one_segment_per_step(kind, monkeypatch, rng):
+    """The pooled executor's cursor stacks host streams on the host and
+    moves one segment of the stack per step; detections equal the
+    unbounded pooled call's bitwise."""
+    (_, gt0), (_, gt1), _ = _tenants(rng)
+    a = rng.rand(1, 1, 20, 24, 80).astype(np.float32)
+    b = rng.rand(2, 1, 20, 24, 80).astype(np.float32)
+    if kind == "torch_cpu":
+        a, b = torch.from_numpy(a), torch.from_numpy(b)
+    req = [(gt1, a), (gt1, b), (gt0, a)]
+    _, te = engines("ideal")
+    whole = te.query_stream_many(req, readout_k=2)
+    moves = _Moves(monkeypatch)
+    got = te.query_stream_many(req, max_buffer_windows=1, readout_k=2)
+    cursor = t_engine.spectral_conv.StreamCursor(te.stream_plan_for(gt1, 80), 1)
+    stack_bytes = 3 * 20 * 24 * cursor.peak_buffer_frames * 4
+    assert moves.whole == [] and len(moves.segments) == 2 * len(cursor)
+    assert max(moves.segments) <= stack_bytes
+    for w, g in zip(whole, got):
+        assert torch.equal(w.scores, g.scores) and torch.equal(w.index, g.index)
+
+
+def test_host_stream_and_stack_streams():
+    x = np.zeros((1, 1, 2, 3, 4), np.float32)
+    h = t_engine.host_stream(x, "cpu")
+    assert h.device.type == "cpu" and h.dtype == torch.float32
+    assert h.data_ptr() == x.ctypes.data  # float32 numpy is wrapped, not copied
+    assert t_engine.host_stream(x.astype(np.float64), "cpu").dtype == torch.float32
+    s = t_engine.stack_streams([h, h + 1], "cpu")
+    assert s.shape == (2, 1, 2, 3, 4) and torch.equal(s[1], h[0] + 1)
+
+
 def test_stream_rejects_wrong_frame_size(kernels):
     _, te = engines("ideal")
     g = te.record(kernels, SIG)

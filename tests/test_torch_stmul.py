@@ -235,3 +235,101 @@ def test_topk_signed_zero_ties_resolve_by_index():
     assert np.array_equal(i.numpy(), np.asarray(i_r))
     assert np.array_equal(s.numpy(), np.asarray(s_r))  # values equal
 
+
+
+# -- B3's split of the score axis (kernel.topk_plan) ----------------------------
+
+
+@pytest.mark.parametrize("R", [1, 9, 18, 36])
+@pytest.mark.parametrize("L", [1, 3, 700, 289_788])
+def test_topk_plan_covers_the_row_and_fills_the_card(R, L):
+    """S slices of n scores tile [0, L) exactly (no empty slice), start on
+    16-byte boundaries when L % 4 == 0, and R·S reaches the fill target
+    unless the slices are already at their minimum length."""
+    S, n = t_kernel.topk_plan(R, L)
+    bounds = [(s * n, min((s + 1) * n, L)) for s in range(S)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == L
+    assert all(a < b for a, b in bounds)
+    assert all(b == a2 for (_, b), (a2, _) in zip(bounds, bounds[1:]))
+    assert n % 4 == 0
+    if L % 4 == 0:
+        assert all((R_ * L + a) * 4 % 16 == 0 for R_ in range(R) for a, _ in bounds)
+    min_n = t_kernel.TOPK_THREADS * t_kernel.TOPK_MIN_PER_THREAD
+    assert R * S >= t_kernel.TOPK_FILL_BLOCKS or n == min_n
+    assert n >= min_n  # every thread reads at least TOPK_MIN_PER_THREAD scores
+
+
+def test_topk_plan_at_the_serving_shapes():
+    assert t_kernel.topk_plan(36, 289_788) == (15, 19_320)
+    assert t_kernel.topk_plan(18, 289_788) == (30, 9_660)
+    assert t_kernel.topk_plan(9, 289_788) == (59, 4_912)
+    with pytest.raises(ValueError):
+        t_kernel.topk_plan(0, 10)
+
+
+def _straddling(rng, R, L, plan):
+    """Ties, NaN, -inf stretches and ±0 runs placed on the plan's slice
+    boundaries (rows take the boundaries in turn)."""
+    S, n = plan
+    v = rng.randn(R, L).astype(np.float32)
+    cuts = [s * n for s in range(1, S)] or [L // 2]
+    for r in range(R):
+        c = cuts[r % len(cuts)]
+        kind = r % 6
+        if kind == 0:
+            v[r, c - 3 : c + 3] = 10.0
+        elif kind == 1:
+            v[r, c] = np.nan
+        elif kind == 2:
+            v[r, c - 1] = np.nan
+        elif kind == 3:
+            v[r] = -np.inf
+            v[r, c - 1] = v[r, c + 1] = 1.0
+        elif kind == 4:
+            v[r] = -1.0 - np.abs(v[r])
+            v[r, c - 2 : c + 2] = [0.0, -0.0, 0.0, -0.0]
+        else:
+            lo, hi = max(c - 500, 1), min(c + 500, L - 1)
+            v[r, lo:hi] = -np.inf
+            v[r, lo - 1] = v[r, hi] = 9.0
+    return v
+
+
+@pytest.mark.parametrize(
+    "R,L,k", [(6, 20_000, 1), (6, 20_000, 3), (6, 20_000, 4), (6, 20_000, 32), (9, 289_788, 1), (9, 289_788, 3)]
+)
+def test_topk_slice_merge_is_the_one_shot_readout_bitwise(R, L, k, rng):
+    """What the two-pass kernel computes: per-slice readouts over the
+    plan's own slices, merged, equal the one-shot readout bit for bit —
+    with the ties, NaN, -inf and ±0 straddling the slice boundaries."""
+    plan = t_kernel.topk_plan(R, L)
+    assert plan[0] > 1
+    v = T(_straddling(rng, R, L, plan))
+    gidx = T(rng.permutation(L).astype(np.int32))
+    whole = t_ref.topk_readout_ref(v, gidx, k)
+    S, n = plan
+    states = [t_ref.topk_readout_ref(v[:, s * n : (s + 1) * n], gidx[s * n : (s + 1) * n], k)
+              for s in range(S)]
+    for order in (states, states[::-1]):
+        s_m, i_m = t_ops.merge_topk(order, k)
+        assert torch.equal(s_m.view(torch.int32), whole[0].view(torch.int32))
+        assert torch.equal(i_m, whole[1])
+    nan_rows = torch.isnan(v).any(dim=1)
+    assert nan_rows.any() and torch.isnan(whole[0][nan_rows]).all()
+    assert (whole[1][nan_rows] == EMPTY).all()
+
+
+def test_kernel_constants_mirror_the_cuda_source():
+    """The wrapper's plan and limits are the ones the CUDA source builds
+    with (its pass-1 block size, its list bound, its row limit)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(t_kernel.__file__).parent / "csrc" / "stmul.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kTopkThreads") == t_kernel.TOPK_THREADS
+    assert const("kTopkMaxK") == t_kernel.TOPK_MAX_K
+    assert const("kMacGroupedMaxRows") == t_kernel.MAC_GROUPED_MAX_ROWS

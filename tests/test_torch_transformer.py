@@ -126,6 +126,52 @@ def test_attention_with_offset_and_lengths_matches_reference():
     close(got, want, atol=3e-5)
 
 
+def _decode_inputs(rng, dtype):
+    q = torch.from_numpy(rng.randn(2, 1, 6, 16).astype(np.float32)).to(dtype)
+    k = torch.from_numpy(rng.randn(2, 30, 2, 16).astype(np.float32)).to(dtype)
+    v = torch.from_numpy(rng.randn(2, 30, 2, 16).astype(np.float32)).to(dtype)
+    return q, k, v, torch.tensor([7, 30], dtype=torch.int32)
+
+
+def test_decode_attention_bf16_cpu_route_matches_reference():
+    """A bf16 cache on the CPU stays on ``_dot_f32`` (no bf16 GEMM with a
+    float32 output there) and matches the reference's bf16 decode to the
+    bf16 rounding of the output (2^-8 relative on values of order 1)."""
+    q, k, v, kv_len = _decode_inputs(np.random.RandomState(2), torch.bfloat16)
+    assert not t_common._bf16_gemm_route(q, k, v)
+    got = t_common.decode_attention(q, k, v, kv_len)
+    assert got.dtype == torch.bfloat16
+    want = r_common.decode_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v)), jnp.asarray(kv_len.numpy())
+    )
+    close(got.float(), np.asarray(want, np.float32), atol=1e-2)
+
+
+def test_decode_attention_gemm_route_reads_the_cache_in_place(monkeypatch):
+    """The card's route, with its bf16 GEMM emulated exactly in float32 on
+    the CPU: same heads, same layout, same result as ``_dot_f32`` (only
+    the float32 sum order may differ), and every GEMM reads a view of the
+    cache's own storage, never a copy."""
+    q, k, v, kv_len = _decode_inputs(np.random.RandomState(3), torch.bfloat16)
+    want = t_common.decode_attention(q, k, v, kv_len)
+    caches = {k.untyped_storage().data_ptr(), v.untyped_storage().data_ptr()}
+    seen = []
+    real_bmm = torch.bmm
+
+    def bmm(a, b, *, out_dtype):
+        assert a.dtype == b.dtype == torch.bfloat16 and out_dtype == torch.float32
+        seen.append(b.untyped_storage().data_ptr())
+        return real_bmm(a.float(), b.float())
+
+    monkeypatch.setattr(t_common, "_bf16_gemm_route", lambda *a: True)
+    monkeypatch.setattr(torch, "bmm", bmm)
+    got = t_common.decode_attention(q, k, v, kv_len)
+    assert len(seen) == 2 * k.shape[2] and set(seen) == caches
+    assert got.dtype == torch.bfloat16
+    rel = float(torch.linalg.vector_norm(got.float() - want.float()) / torch.linalg.vector_norm(want.float()))
+    assert rel <= 1e-2  # at most a bf16 output rounding apart
+
+
 @pytest.mark.parametrize("name", ["gelu", "relu", "squared_relu", "silu"])
 def test_activations_match_reference(name):
     x = np.random.RandomState(2).randn(5, 33).astype(np.float32) * 3
