@@ -15,7 +15,9 @@ Phases, each reported on lines of its own:
              dynamic shared memory ``kernel.smem_bytes`` plans (at most
              227 KB), and its bf16 builds must hold warpgroup MMAs
              (HGMMA, wgmma) and cp.async copies (LDGSTS) in their SASS
-             (``cuobjdump``).
+             (``cuobjdump``); B5's chunk-state and chunk-scan kernels
+             must hold tensor-core MMAs (HMMA, 3xTF32 mma.sync), the
+             scan also cp.async copies.
 2. serve   — a VideoSearchServer at the paper geometry (60x80 frames,
              four tenants of 9x1x30x40x8 kernels, 64-frame windows, 4
              windows per chunk) answers six 1024-frame requests, two
@@ -34,7 +36,9 @@ Phases, each reported on lines of its own:
              detections must equal the unbounded server's bitwise.
 3. kernels — run every kernel at the shapes the serving batch gives it
              and hold it against its plain torch version on the card:
-             B1 v2/v1 to relative L2 <= 1e-5; B2 f32/bf16 at the pooled
+             B1 v2/v1 bitwise, also at an odd F, at C = 3 (the kernel
+             for C > 1) and with 20 kernels (O in chunks that do not fill
+             the last); B2 f32/bf16 at the pooled
              rung's shape, with irregular unsorted offsets into a 64-row
              arena and at an odd F, bitwise; the top-K readout (B3, k = 1
              and 3 at 36 rows, k = 1 at 9 and 18; rows with NaN, -inf,
@@ -51,10 +55,12 @@ Phases, each reported on lines of its own:
              and full generation; the SSD kernel's (B5) launch counter,
              zeroed before the timed calls, must read 48 x the prefills
              run.  B5 is held against its plain version on layer 0's SSD
-             inputs of the first batch and of its 2 x 1024 prefix (the
-             grid batch two gives it), relative L2 <= 1e-5 for y and the
-             final state, and timed like the others (no single PyTorch
-             call computes it: library "none"); its (16, 16, 16) build,
+             inputs of the first batch, of its 2 x 1024 prefix (the grid
+             batch two gives it) and of its first prompt (1 x 2048, 32
+             heads), relative L2 <= 1e-5 for y and the final state, and
+             timed like the others (no single PyTorch call computes it:
+             library "none"; bound: its FLOPs at the TF32 tensor-core
+             rate / 3, the float32 FMA bound beside it); its (16, 16, 16) build,
              which ``serve --mode lm`` runs on the smoke config, is held
              to the same limit on that config; a 2-layer float32 model
              at full width must give the same last logits by the kernel
@@ -110,9 +116,9 @@ Phases, each reported on lines of its own:
              kernels_bench's C3D case (float32 and bf16) and the
              reference test sweep's shapes, and timed beside it (the
              plain version is one cuDNN ``F.conv3d`` call, so its time is
-             also the library time); B1 likewise at the classifier's
-             shapes (16 spectra against a (9, 1, F) grating, F from the
-             60x80x16 clip's FFT grid).
+             also the library time); B1 likewise, bitwise, at the
+             classifier's shapes (16 spectra against a (9, 1, F)
+             grating, F from the 60x80x16 clip's FFT grid).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -141,7 +147,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
-MAC_RTOL = 1e-5
+TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores; B5's 3xTF32 runs three per product
 SSD_RTOL = 1e-5
 FLASH_BF16_RTOL = 1e-2  # the plain version rounds q·scale to bf16 before the dot
 # B6 in bf16 against the plain version on the same inputs upcast to float32
@@ -300,6 +306,44 @@ def phase_build(libs: dict) -> dict:
     return report
 
 
+def _sass_counts(so_path: str, ops: tuple) -> dict | None:
+    """Instructions of each kernel in a library's SASS (``cuobjdump``), by
+    demangled name; None when the tool is missing."""
+    tool = _cuda_tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+            counts[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            for op in counts[fn]:
+                if f" {op}" in ln:
+                    counts[fn][op] += 1
+    names = _demangle(list(counts))
+    return {names[f]: c for f, c in counts.items()}
+
+
+def check_ssd_build(so_path: str) -> dict | None:
+    """B5's chunk-state and chunk-scan kernels, every instantiation, issue
+    tensor-core MMAs (HMMA, mma.sync) in their SASS; the scan kernel's
+    operands arrive by cp.async (LDGSTS)."""
+    counts = _sass_counts(so_path, ("HMMA", "LDGSTS", "FFMA"))
+    if counts is None:
+        print("build: ssd SASS: cuobjdump not found, instructions not counted")
+        return None
+    mma = {f: c for f, c in counts.items() if "ssd_state_kernel" in f or "ssd_scan_kernel" in f}
+    for f, c in mma.items():
+        print(f"build: ssd SASS {f}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    if len(mma) != 4 or not all(c["HMMA"] for c in mma.values()) or not all(
+        c["LDGSTS"] for f, c in mma.items() if "ssd_scan_kernel" in f
+    ):
+        raise AssertionError(f"the ssd builds lack tensor-core MMAs or cp.async: {mma}")
+    return mma
+
+
 def check_flash_build(flash_kernel, so_path: str) -> dict:
     """B6's builds as compiled: every (dtype, head dim)'s dynamic shared
     memory from the library equals ``kernel.smem_bytes`` and fits one
@@ -316,22 +360,11 @@ def check_flash_build(flash_kernel, so_path: str) -> dict:
             if got != want or not 0 < got <= flash_kernel.SMEM_PER_BLOCK:
                 raise AssertionError(f"flash ({dtype}, {d}): library plans {got} bytes, kernel.py {want}")
             plan[f"{dtype}/{d}"] = {"route": route, "smem_bytes": got}
-    tool = _cuda_tool("cuobjdump")
-    if tool is None:
+    counts = _sass_counts(so_path, ("HGMMA", "HMMA", "LDGSTS", "MUFU.EX2", "FFMA"))
+    if counts is None:
         print("build: flash SASS: cuobjdump not found, instructions not counted")
         return {"plan": plan, "sass": None}
-    sass = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
-    for ln in sass.splitlines():
-        if "Function : " in ln:
-            fn = ln.split("Function : ")[1].strip()
-            counts[fn] = dict.fromkeys(("HGMMA", "HMMA", "LDGSTS", "MUFU.EX2", "FFMA"), 0)
-        elif fn is not None:
-            for op in counts[fn]:
-                if f" {op}" in ln:
-                    counts[fn][op] += 1
-    names = _demangle(list(counts))
-    wg = {names[f]: c for f, c in counts.items() if "flash_wgmma_kernel" in names[f]}
+    wg = {f: c for f, c in counts.items() if "flash_wgmma_kernel" in f}
     for f, c in wg.items():
         print(f"build: flash SASS {f}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     if len(wg) != len(flash_kernel.HEAD_DIMS) or not all(c["HGMMA"] and c["LDGSTS"] for c in wg.values()):
@@ -391,10 +424,9 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
         rows.append(r)
         del out, exp
 
-    def mac_check(out, exp):
-        rel = _rel_l2(torch.view_as_real(out), torch.view_as_real(exp))
+    def mac_bits(out, exp):
         mx = float(torch.max(torch.abs(out - exp)))
-        return {"max_abs_err": mx, "rel_l2": rel}, rel <= MAC_RTOL
+        return {"max_abs_err": mx}, _bits_equal(torch.view_as_real(out), torch.view_as_real(exp))
 
     # B1: sequential rung, a tenant group of 2 streams x 4 windows per chunk
     x = cplx(8, C, F)
@@ -408,14 +440,24 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
                 lambda v=version: kernel.spectral_mac_cuda(x, gr, v),
                 lambda v=version: ref.spectral_mac_ref(x, gr, v),
                 lambda: torch.einsum("bcf,ocf->bof", x, gr),
-                mac_check, b1_bytes, b1_flops,
+                mac_bits, b1_bytes, b1_flops,
                 ("spectral_mac", "src/repro/kernels/stmul/kernel.py:147"),
             )
     del x, gr
 
-    def mac_bits(out, exp):
-        mx = float(torch.max(torch.abs(out - exp)))
-        return {"max_abs_err": mx}, _bits_equal(torch.view_as_real(out), torch.view_as_real(exp))
+    # B1 off the rung's plan, bitwise: an odd F (scalar path), three
+    # channels (the C > 1 kernel, even and odd F) and 20 kernels at C = 1
+    # (registers, chunks of 9, 9 and 2)
+    for B_, O_, C_, Fx in ((8, O, C, F - 1), (4, O, 3, 10_000), (4, O, 3, 10_001), (3, 20, 1, 10_001)):
+        xx, gg = cplx(B_, C_, Fx), cplx(O_, C_, Fx)
+        plan = kernel.mac_plan(B_, O_, C_, Fx)
+        for version in (2, 1):
+            err, ok = mac_bits(kernel.spectral_mac_cuda(xx, gg, version), ref.spectral_mac_ref(xx, gg, version))
+            print(f"kernels: B1 v{version} x ({B_}, {C_}, {Fx}) grating ({O_}, {C_}, {Fx}), plan {plan}: "
+                  f"{'bitwise' if ok else 'DIFFERS'}")
+            if not ok:
+                raise AssertionError(f"B1 v{version} at B={B_}, O={O_}, C={C_}, F={Fx} differs ({err})")
+        del xx, gg
 
     # B2: pooled rung, 4 encoded streams x 4 windows against an 18-row
     # arena; then irregular, unsorted offsets into a 64-row arena, and an
@@ -558,6 +600,26 @@ def _profile(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     return _device_time(prof, wall_ms, 1)
+
+
+def _pass_ms(fn, marker: str, reps: int = 10) -> dict:
+    """Device ms per call of each kernel whose name holds ``marker``
+    (the launches behind one wrapper call), from the profiler's CUDA
+    activity over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if marker in e.key and us:
+            out[e.key.split("namespace)::")[-1].split("(")[0]] = us / reps / 1e3
+    return out
 
 
 def _device_time(prof, wall_ms: float, calls: int) -> dict:
@@ -788,12 +850,14 @@ def _cursor_memory(tenants, unbounded, rng) -> dict:
 
 def _ssd_cost(Bb, L, H, G, P, N, Q) -> tuple[float, float]:
     """Bytes (each input read once, each output written once) and FLOPs of
-    one chunked SSD scan.  Per (batch, head, chunk): the causal lower
-    triangle of the scores, Q(Q+1)/2 dot products of length N, and of the
-    intra-chunk product, Q(Q+1)/2 rows of P (Q(Q+1)(N+P) together); the
-    state readout and the state update, 2QNP each."""
+    one chunked SSD scan.  Per (batch, chunk, group): the causal lower
+    triangle of the scores C·Bᵀ, Q(Q+1)/2 dot products of length N
+    (Q(Q+1)N), which depend on the group's B and C only and so are shared
+    by its H / G heads.  Per (batch, chunk, head): the intra-chunk
+    product, Q(Q+1)/2 rows of P (Q(Q+1)P), and the state readout and the
+    state update, 2QNP each."""
     nbytes = 4 * (2 * Bb * L * H * P + Bb * L * H + H + 2 * Bb * L * G * N + Bb * H * P * N)
-    flops = Bb * H * (L // Q) * (Q * (Q + 1) * (N + P) + 4 * Q * N * P)
+    flops = Bb * (L // Q) * (G * Q * (Q + 1) * N + H * (Q * (Q + 1) * P + 4 * Q * N * P))
     return nbytes, flops
 
 
@@ -896,8 +960,9 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
     prompts = prompts_by[LM_BATCHES[0][:2]]
 
     # B5 against its plain version on layer 0's SSD inputs: batch one,
-    # the 2 x 1024 grid that batch two's padded prompts give it, and the
-    # (16, 16, 16) build that ``serve --mode lm`` runs on the smoke config
+    # the 2 x 1024 grid that batch two's padded prompts give it, one
+    # 2048-token prompt (Bb·H = 32 heads), and the (16, 16, 16) build
+    # that ``serve --mode lm`` runs on the smoke config
     def b5_inputs(m, c, toks):
         with torch.inference_mode():
             x0 = m.embed.to(c.compute_dtype)[toks]
@@ -920,14 +985,20 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
 
     model = server.model
     rows = []
-    for tag, toks in (("", prompts), ("[2x1024]", prompts[:2, :1024])):
+    for tag, toks in (("", prompts), ("[2x1024]", prompts[:2, :1024]), ("[1x2048]", prompts[:1])):
         args = b5_inputs(model, cfg, toks)
         rel, mx = b5_check(args, cfg.chunk)
         Bb, L, H, P = args[0].shape
         G, N = args[3].shape[2:]
         ms = _time_ms(lambda: ssd_kernel.ssd_chunked_cuda(*args, cfg.chunk), 20)
         plain_ms = _time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=cfg.chunk), 3)
-        bound, by = _bound_ms(*_ssd_cost(Bb, L, H, G, P, N, cfg.chunk))
+        passes = _pass_ms(lambda: ssd_kernel.ssd_chunked_cuda(*args, cfg.chunk), "ssd_")
+        print(f"lm: B5 {Bb}x{L} passes: " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in passes.items()))
+        cost = _ssd_cost(Bb, L, H, G, P, N, cfg.chunk)
+        # the products run on the TF32 tensor cores, three per product
+        # (3xTF32); the FMA pipes' float32 bound is kept beside it
+        bound, by = _bound_ms(*cost, rate=TF32_FLOPS / 3)
+        bound_f32, _ = _bound_ms(*cost)
         rows.append({
             "name": f"ssd_chunked{tag}",
             "route": "cuda",
@@ -942,6 +1013,8 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
             "plain_ms": plain_ms,
             "bound_ms": bound,
             "bound_by": by,
+            "bound_f32_fma_ms": bound_f32,
+            "passes_ms": passes,
             "library_ms": None,
             "shape": {"Bb": Bb, "L": L, "H": H, "G": G, "P": P, "N": N, "chunk": cfg.chunk},
         })
@@ -1490,12 +1563,12 @@ def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
     with spectral_conv.full_precision():
         got = stmul_kernel.spectral_mac_cuda(xh, gr, 2)
         want = stmul_ref.spectral_mac_ref(xh, gr, 2)
-        rel = _rel_l2(torch.view_as_real(got), torch.view_as_real(want))
         mx = float(torch.max(torch.abs(got - want)))
-        print(f"classify: B1 x {tuple(xh.shape)} grating {tuple(gr.shape)} vs plain: rel L2 "
-              f"{rel:.3g}, max abs {mx:.3g}")
-        if not rel <= MAC_RTOL:
-            raise AssertionError(f"B1 at the classifier's shapes disagrees (rel L2 {rel:.3g})")
+        bitwise = _bits_equal(torch.view_as_real(got), torch.view_as_real(want))
+        print(f"classify: B1 x {tuple(xh.shape)} grating {tuple(gr.shape)} vs plain: "
+              f"{'bitwise' if bitwise else 'DIFFERS'}, max abs {mx:.3g}")
+        if not bitwise:
+            raise AssertionError(f"B1 at the classifier's shapes differs from its plain version (max abs {mx:.3g})")
         ms = _time_ms(lambda: stmul_kernel.spectral_mac_cuda(xh, gr, 2), 20)
         plain_ms = _time_ms(lambda: stmul_ref.spectral_mac_ref(xh, gr, 2), 3)
         lib_ms = _time_ms(lambda: torch.einsum("bcf,ocf->bof", xh, gr), 20)
@@ -1509,7 +1582,7 @@ def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
         "launches": b1,
         "max_abs_err": mx,
         "max_err": mx,
-        "rel_l2": rel,
+        "bitwise": bitwise,
         "ms": ms,
         "kernel_ms": ms,
         "plain_ms": plain_ms,
@@ -1540,6 +1613,7 @@ def main() -> int:
         "stmul": kernel, "ssd": ssd_kernel, "flash": flash_kernel, "conv3d": conv_kernel,
     })}
     report["build"]["flash_checks"] = check_flash_build(flash_kernel, report["build"]["flash"]["path"])
+    report["build"]["ssd_sass"] = check_ssd_build(report["build"]["ssd"]["path"])
     report["serve"] = phase_serve(kernel, args.seed)
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
     report["lm"], ssd_rows = phase_lm(args.seed)

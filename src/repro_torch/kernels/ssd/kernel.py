@@ -2,14 +2,19 @@
 
 The source is ``csrc/ssd.cu`` (a plain C entry point; the note at its
 top says what it replaces, what bounds it on the card and how its design
-answers that).  :mod:`repro_torch.kernels._build` compiles it with
-``nvcc`` for ``sm_90a`` on first use and loads it with ``ctypes``;
-:func:`build` does it eagerly and reports the compile.
+answers that).  One call runs three launches — chunk states, state
+passing, chunk scan — through a workspace the wrapper allocates
+(:func:`ssd_workspace_floats`); :func:`repro_torch.kernels.ssd.ref.
+ssd_three_pass_ref` models the three passes in plain torch.
+:mod:`repro_torch.kernels._build` compiles it with ``nvcc`` for
+``sm_90a`` on first use and loads it with ``ctypes``; :func:`build`
+does it eagerly and reports the compile.
 
 :func:`ssd_chunked_cuda` takes CUDA tensors only, checks device, dtype,
 shape and contiguity, allocates its outputs with ``torch.empty``,
 launches on ``torch.cuda.current_stream()``, raises if the launch
-reported an error, and adds one to its ``launches`` counter.  Its plain
+reported an error, and adds one to its ``launches`` counter (one per
+call, whatever the launches behind it).  Its plain
 version is :func:`repro_torch.kernels.ssd.ref.ssd_chunked_ref`; the
 routing between the two (by the tensor's device) is in
 :mod:`repro_torch.kernels.ssd.ops`.
@@ -33,9 +38,38 @@ SHAPES = {(128, 64, 128), (16, 16, 16)}
 _LIB = CudaLibrary(
     "ssd",
     Path(__file__).resolve().parent / "csrc",
-    {"ssd_chunked": [VP] * 7 + [I32] * 7 + [VP]},
+    {"ssd_chunked": [VP] * 8 + [I32] * 8 + [VP]},
 )
 build = _LIB.build
+
+
+def ssd_workspace_floats(Bb: int, H: int, nc: int, chunk: int, P: int, N: int) -> int:
+    """Float32 workspace of one call: every (b, h, chunk)'s P×N state
+    (its local state ΔS after pass 1, the state entering it after pass 2),
+    then every (b, h, chunk)'s ``chunk`` values of seg."""
+    return Bb * H * nc * (P * N + chunk)
+
+
+SCAN_MIN_BLOCKS_PER_SM = 1.5  # chunk-scan blocks per SM that head batching keeps
+
+
+def scan_heads_per_block(Bb: int, nc: int, H: int, G: int, sms: int) -> int:
+    """Heads of one B/C group that one chunk-scan block (pass 3) walks:
+    the largest power of two dividing H / G that leaves at least
+    ``SCAN_MIN_BLOCKS_PER_SM`` blocks per SM.  The group's C and B are
+    staged, and its raw scores C·Bᵀ formed, once for those heads, and
+    each head's loads hide behind the previous head's products; batching
+    stops where the card would run short of blocks."""
+    hb = 1
+    while (H // G) % (2 * hb) == 0 and Bb * nc * H // (2 * hb) >= SCAN_MIN_BLOCKS_PER_SM * sms:
+        hb *= 2
+    return hb
+
+
+def _aligned(t: Tensor) -> Tensor:
+    """``t`` itself, or a fresh copy when a view leaves it off the 16-byte
+    boundary the kernel's vector copies need."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def reset_launches() -> None:
@@ -70,13 +104,18 @@ def ssd_chunked_cuda(
         raise ValueError(f"no kernel for chunk={chunk}, P={P}, N={N}; built for {sorted(SHAPES)}")
     if L % chunk:
         raise ValueError(f"L={L} not a multiple of chunk={chunk}")
-    if not 0 < Bb * H < 2**31:
-        raise ValueError(f"Bb·H = {Bb * H} outside the kernel's grid")
+    if not 0 < Bb * H * (L // chunk) < 2**31:
+        raise ValueError(f"Bb·H·chunks = {Bb * H * (L // chunk)} outside the kernel's grid")
+    nc = L // chunk
+    x, B, C = _aligned(x), _aligned(B), _aligned(C)
     y = torch.empty_like(x)
     s = torch.empty((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    ws = torch.empty(ssd_workspace_floats(Bb, H, nc, chunk, P, N), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     rc = _LIB.lib().ssd_chunked(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), s.data_ptr(), Bb, L // chunk, H, G, chunk, P, N, _build.stream(),
+        y.data_ptr(), s.data_ptr(), ws.data_ptr(), Bb, nc, H, G, chunk, P, N,
+        scan_heads_per_block(Bb, nc, H, G, sms), _build.stream(),
     )
     _build.check(rc, "ssd_chunked")
     _build.count(ssd_chunked_cuda)

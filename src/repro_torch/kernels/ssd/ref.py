@@ -114,3 +114,72 @@ def ssd_chunked_ref(
 
     y = (y_intra + y_inter).reshape(Bb, L, H, P)
     return y, S
+
+
+# ---- the CUDA kernel's three passes, step by step (used by the tests) -------
+
+
+def ssd_chunk_states_ref(
+    x: Tensor, dt: Tensor, A: Tensor, B: Tensor, chunk: int
+) -> tuple[Tensor, Tensor]:
+    """Pass 1: per (b, h, chunk) the sequential float32 cumsum ``seg`` of
+    the rounded dt·A (Bb, H, nc, Q) and the chunk's local state
+    ΔS = (x·dt·e^{total − seg})ᵀ·B (Bb, H, nc, P, N)."""
+    Bb, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = L // chunk
+    dtq = dt.reshape(Bb, nc, chunk, H).permute(0, 3, 1, 2)  # (Bb, H, nc, Q)
+    seg = torch.cumsum(dtq * A[None, :, None, None], dim=-1)
+    w = torch.exp(seg[..., -1:] - seg)
+    xq = x.reshape(Bb, nc, chunk, H, P).permute(0, 3, 1, 2, 4)  # (Bb, H, nc, Q, P)
+    xw = xq * dtq[..., None] * w[..., None]
+    bq = B.repeat_interleave(H // G, dim=2).reshape(Bb, nc, chunk, H, N).permute(0, 3, 1, 2, 4)
+    return seg, xw.transpose(-1, -2) @ bq
+
+
+def ssd_state_passing_ref(dS: Tensor, seg: Tensor) -> tuple[Tensor, Tensor]:
+    """Pass 2: the state entering each chunk, S_in(c + 1) = e^{total_c} ·
+    S_in(c) + ΔS_c from S_in(0) = 0 (Bb, H, nc, P, N), and the final
+    state (Bb, H, P, N)."""
+    S = torch.zeros_like(dS[:, :, 0])
+    S_in = []
+    for c in range(dS.shape[2]):
+        S_in.append(S)
+        S = torch.exp(seg[:, :, c, -1])[..., None, None] * S + dS[:, :, c]
+    return torch.stack(S_in, dim=2), S
+
+
+def ssd_chunk_scan_ref(
+    x: Tensor, dt: Tensor, B: Tensor, C: Tensor, seg: Tensor, S_in: Tensor, chunk: int
+) -> Tensor:
+    """Pass 3: per (b, h, chunk) y = e^{seg_i}·(C·S_inᵀ) + (scores ⊙
+    decay)·(dt·x), the causal mask applied before the exponential."""
+    Bb, L, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    nc = L // chunk
+
+    def by_chunk(t, width):  # (Bb, L, H', width) -> (Bb, H, nc, Q, width)
+        t = t.repeat_interleave(H // t.shape[2], dim=2)
+        return t.reshape(Bb, nc, chunk, H, width).permute(0, 3, 1, 2, 4)
+
+    xq, bq, cq = by_chunk(x, P), by_chunk(B, N), by_chunk(C, N)
+    dtq = dt.reshape(Bb, nc, chunk, H).permute(0, 3, 1, 2)
+    y_inter = torch.exp(seg)[..., None] * (cq @ S_in.transpose(-1, -2))
+    d = seg[..., :, None] - seg[..., None, :]
+    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    scores = (cq @ bq.transpose(-1, -2)) * torch.exp(d.masked_fill(~mask, float("-inf")))
+    y = y_inter + scores @ (xq * dtq[..., None])
+    return y.permute(0, 2, 3, 1, 4).reshape(Bb, L, H, P)
+
+
+def ssd_three_pass_ref(
+    x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, chunk: int
+) -> tuple[Tensor, Tensor]:
+    """The CUDA kernel's decomposition of :func:`ssd_chunked_ref` (from a
+    zero state): chunk states, state passing, chunk scan.  L must be a
+    multiple of ``chunk``."""
+    if x.shape[1] % chunk:
+        raise ValueError(f"L={x.shape[1]} not a multiple of chunk={chunk}")
+    seg, dS = ssd_chunk_states_ref(x, dt, A, B, chunk)
+    S_in, S = ssd_state_passing_ref(dS, seg)
+    return ssd_chunk_scan_ref(x, dt, B, C, seg, S_in, chunk), S

@@ -8,24 +8,41 @@
 //    kernel.py:147).  Y[b,o,f] = sum_c X[b,c,f] * G[o,c,f], complex64.
 //    Bound: bytes.  At the paper's C = 1 each output bin costs one
 //    complex product (3 or 4 real multiplies) against 24 bytes moved, far
-//    below the card's ~20 flop/byte balance point in float32.  Design:
-//    one thread per frequency bin, grid (F-tiles, O, B), so neighbouring
-//    threads read neighbouring 8-byte complex values (coalesced) and the
-//    X row is re-read from L2 across the O blocks instead of from HBM.
-//    The loop over C accumulates in float32.  Every product and sum is
-//    an explicitly rounded intrinsic (__fmul_rn, __fadd_rn), so nvcc
-//    fuses nothing into an FMA and the kernel is bitwise equal to its
-//    plain torch version (ref.py), which runs the same op sequence.
+//    below the card's ~20 flop/byte balance point in float32, and most of
+//    the bytes are the output (230 of 284 MB at the sequential rung's
+//    8 x 9 x 399,600).  A grid over (bins, o, b), as first ported, reads
+//    each grating row once per batch row; the 28.8 MB grating is pushed
+//    out of the 50 MB L2 by the outputs between those reads, so it comes
+//    from HBM B times.  Design (B2's, without the offsets): the grid runs
+//    over bin tiles of 2 * kMacThreads bins, each tile split into B
+//    blocks of one batch row, next to each other in the grid, so that a
+//    tile's later blocks find its grating bins in L2: every x and g byte
+//    is read from device memory once per call.  Each thread owns two
+//    neighbouring bins.  At C = 1 it loads its bins of kMacRegRows grating
+//    rows at a time into registers (nine, the paper's O, so that the
+//    rung's grating is one chunk and a thread keeps under 100 registers)
+//    and then its x bins once.  One batch row per block balances better
+//    over the SMs than one block per tile walking all B rows, whose last
+//    wave was a third full (measured faster at both main shapes; PERF.md
+//    §6).  At C > 1, which no caller runs, the same grid reads x and g per
+//    output row, the grating through L2.  Outputs leave as 16-byte
+//    evict-first stores (__stcs) that do not push x and g out of L2.  The
+//    plan (grid, rows per chunk) is computed here from (B, O, C, F);
+//    kernel.py mac_plan mirrors it.  Every product and sum is an
+//    explicitly rounded intrinsic (__fmul_rn, __fadd_rn) in mac_step's
+//    order, so nvcc fuses nothing into an FMA and the kernel is bitwise
+//    equal to its plain torch version (ref.py).
 //    VERSION 2 is the Karatsuba 3-multiply form, 1 the direct 4-multiply.
+//    Odd F takes B2's contiguous scalar path.
 //
 // B2 stmul_mac_grouped replaces spectral_mac_grouped_pallas
 //    (kernel.py:248).  y[b,o,f] = sum_c x[b,c,f] * g[o_start[b]+o,c,f]
 //    against split re/im arena planes stored float32 or bfloat16. Bound:
 //    bytes, and most of them are the output (at the pooled rung's 16 rows
 //    x 9 kernels x 399,600 bins, 460 MB of the 569 MB).  A grid over
-//    (bins, o, b) as B1's re-reads each arena row once per batch row that
-//    uses it, ~58 MB apart, past the 50 MB L2: ~970 MB from device
-//    memory.  Design: the grid runs over bin tiles only; each thread owns
+//    (bins, o, b), as B1's first port, re-reads each arena row once per
+//    batch row that uses it, ~58 MB apart, past the 50 MB L2: ~970 MB
+//    from device memory.  Design: the grid runs over bin tiles only; each thread owns
 //    two neighbouring bins and walks every (b, o) itself, the batch rows
 //    in order of their offset (sorted on the host).  When the offset
 //    changes, the thread stages its bins of that offset's n_out arena
@@ -80,6 +97,8 @@ constexpr int kTopkThreads = 256;  // pass 1; kernel.py TOPK_THREADS
 constexpr int kEmptyIdx = 2147483647;  // TOPK_EMPTY_IDX
 constexpr int kMacGroupedMaxRows = 256;  // kernel.py MAC_GROUPED_MAX_ROWS
 constexpr int kMacStageBytes = 48 * 1024;  // shared memory for the staged slots
+constexpr int kMacThreads = 128;  // B1's block; kernel.py MAC_THREADS
+constexpr int kMacRegRows = 9;  // B1's grating rows in registers at C = 1; kernel.py MAC_REG_ROWS
 constexpr unsigned kFull = 0xffffffffu;
 
 // One channel's contribution to the complex MAC, accumulated in the
@@ -112,25 +131,6 @@ template <int VERSION>
 __device__ __forceinline__ float2 mac_finish(float s0, float s1, float s2) {
   if (VERSION == 2) return make_float2(__fsub_rn(s0, s1), __fsub_rn(__fsub_rn(s2, s0), s1));
   return make_float2(s0, s1);
-}
-
-template <int VERSION>
-__global__ void mac_kernel(const float2* __restrict__ x,
-                           const float2* __restrict__ g,
-                           float2* __restrict__ y, int C, int O, long long F) {
-  const long long f = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= F) return;
-  const int o = blockIdx.y;
-  const int b = blockIdx.z;
-  const float2* xb = x + (size_t)b * C * F + f;
-  const float2* go = g + (size_t)o * C * F + f;
-  float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float2 xv = xb[(size_t)c * F];
-    const float2 gv = go[(size_t)c * F];
-    mac_step<VERSION>(s0, s1, s2, xv.x, xv.y, gv.x, gv.y, c == 0);
-  }
-  y[((size_t)b * O + o) * F + f] = mac_finish<VERSION>(s0, s1, s2);
 }
 
 // B2's batch rows, passed by value: row order[i] is the i-th by offset.
@@ -170,6 +170,80 @@ __device__ __forceinline__ void store_cplx2(float2* p, long long step, float4 v,
   } else {
     __stcs(p, make_float2(v.x, v.y));
     if (two) __stcs(p + step, make_float2(v.z, v.w));
+  }
+}
+
+// B1's block: bin tile blockIdx.x / B and batch row blockIdx.x % B, so a
+// tile's B blocks sit next to each other and find its grating bins in L2.
+// The tile's 2 * kMacThreads bins: thread t owns 2t and 2t + 1 when
+// PAIRED, else t and t + kMacThreads (so a warp's scalar accesses stay
+// contiguous).
+template <bool PAIRED>
+__device__ __forceinline__ long long mac_bin(int B) {
+  return 2LL * (blockIdx.x / B) * kMacThreads + (PAIRED ? 2 * threadIdx.x : threadIdx.x);
+}
+
+// One output row's two bins from x and g bins {re0, im0, re1, im1}.
+template <int VERSION>
+__device__ __forceinline__ float4 mac_bins(float4 xv, float4 gv) {
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, u0 = 0.f, u1 = 0.f, u2 = 0.f;
+  mac_step<VERSION>(s0, s1, s2, xv.x, xv.y, gv.x, gv.y, true);
+  mac_step<VERSION>(u0, u1, u2, xv.z, xv.w, gv.z, gv.w, true);
+  const float2 y0 = mac_finish<VERSION>(s0, s1, s2);
+  const float2 y1 = mac_finish<VERSION>(u0, u1, u2);
+  return make_float4(y0.x, y0.y, y1.x, y1.y);
+}
+
+// B1 at one channel: the thread's bins of up to kMacRegRows grating rows
+// sit in registers (the unrolled loops index them with constants).
+template <int VERSION, bool PAIRED>
+__global__ void __launch_bounds__(kMacThreads)
+mac_c1_kernel(const float2* __restrict__ x, const float2* __restrict__ g,
+              float2* __restrict__ y, int B, int O, long long F) {
+  const long long f0 = mac_bin<PAIRED>(B);
+  const int b = blockIdx.x % B;
+  const long long step = PAIRED ? 1 : kMacThreads;
+  if (f0 >= F) return;
+  const bool two = f0 + step < F;
+  for (int o0 = 0; o0 < O; o0 += kMacRegRows) {
+    const int oc = min(kMacRegRows, O - o0);
+    float4 gv[kMacRegRows];
+#pragma unroll
+    for (int ol = 0; ol < kMacRegRows; ++ol) {
+      if (ol < oc) gv[ol] = load_cplx2<PAIRED>(g + (size_t)(o0 + ol) * F + f0, step, two);
+    }
+    const float4 xv = load_cplx2<PAIRED>(x + (size_t)b * F + f0, step, two);
+    float2* yb = y + ((size_t)b * O + o0) * F + f0;
+#pragma unroll
+    for (int ol = 0; ol < kMacRegRows; ++ol) {
+      if (ol < oc) store_cplx2<PAIRED>(yb + (size_t)ol * F, step, mac_bins<VERSION>(xv, gv[ol]), two);
+    }
+  }
+}
+
+// B1 at C > 1: x and g read per output row, the grating through L2.
+template <int VERSION, bool PAIRED>
+__global__ void __launch_bounds__(kMacThreads)
+mac_kernel(const float2* __restrict__ x, const float2* __restrict__ g,
+           float2* __restrict__ y, int B, int O, int C, long long F) {
+  const long long f0 = mac_bin<PAIRED>(B);
+  const int b = blockIdx.x % B;
+  const long long step = PAIRED ? 1 : kMacThreads;
+  if (f0 >= F) return;
+  const bool two = f0 + step < F;
+  const float2* xb = x + (size_t)b * C * F + f0;
+  for (int o = 0; o < O; ++o) {
+    const float2* go = g + (size_t)o * C * F + f0;
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f, u0 = 0.f, u1 = 0.f, u2 = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float4 xv = load_cplx2<PAIRED>(xb + (size_t)c * F, step, two);
+      const float4 gv = load_cplx2<PAIRED>(go + (size_t)c * F, step, two);
+      mac_step<VERSION>(s0, s1, s2, xv.x, xv.y, gv.x, gv.y, c == 0);
+      mac_step<VERSION>(u0, u1, u2, xv.z, xv.w, gv.z, gv.w, c == 0);
+    }
+    const float2 y0 = mac_finish<VERSION>(s0, s1, s2);
+    const float2 y1 = mac_finish<VERSION>(u0, u1, u2);
+    store_cplx2<PAIRED>(y + ((size_t)b * O + o) * F + f0, step, make_float4(y0.x, y0.y, y1.x, y1.y), two);
   }
 }
 
@@ -456,6 +530,19 @@ int launch_topk(const float* vals, const int* gidx, float* out_s, int* out_i, in
   return (int)cudaGetLastError();
 }
 
+template <int VERSION, bool PAIRED>
+int launch_mac(const float2* x, const float2* g, float2* y, int B, int O, int C, long long F,
+               cudaStream_t st) {
+  const long long blocks = (F + 2LL * kMacThreads - 1) / (2LL * kMacThreads) * B;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (C == 1) {
+    mac_c1_kernel<VERSION, PAIRED><<<(unsigned)blocks, kMacThreads, 0, st>>>(x, g, y, B, O, F);
+  } else {
+    mac_kernel<VERSION, PAIRED><<<(unsigned)blocks, kMacThreads, 0, st>>>(x, g, y, B, O, C, F);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool PAIRED>
 int launch_mac_grouped(const void* x, const void* gre, const void* gim, void* y, int B, int C,
                        long long F, int n_out, const MacGroupedRows& rows, cudaStream_t st) {
@@ -492,18 +579,25 @@ int dispatch_mac_grouped(const void* x, const void* gre, const void* gim, void* 
 
 extern "C" {
 
+// A grid of more than 2^31 - 1 blocks is refused with
+// cudaErrorInvalidValue.
 int stmul_mac(const void* x, const void* g, void* y, int B, int O, int C,
-              long long F, int version, int threads, void* stream) {
-  const dim3 grid((unsigned)((F + threads - 1) / threads), O, B);
+              long long F, int version, void* stream) {
+  if (B < 1 || O < 1 || C < 1 || F < 1 || (version != 1 && version != 2)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool paired = F % 2 == 0 && (uintptr_t)x % 16 == 0 && (uintptr_t)g % 16 == 0 &&
+                      (uintptr_t)y % 16 == 0;
+  const float2* xx = (const float2*)x;
+  const float2* gg = (const float2*)g;
+  float2* yy = (float2*)y;
   cudaStream_t s = (cudaStream_t)stream;
   if (version == 1) {
-    mac_kernel<1><<<grid, threads, 0, s>>>((const float2*)x, (const float2*)g,
-                                          (float2*)y, C, O, F);
-  } else {
-    mac_kernel<2><<<grid, threads, 0, s>>>((const float2*)x, (const float2*)g,
-                                          (float2*)y, C, O, F);
+    if (paired) return launch_mac<1, true>(xx, gg, yy, B, O, C, F, s);
+    return launch_mac<1, false>(xx, gg, yy, B, O, C, F, s);
   }
-  return (int)cudaGetLastError();
+  if (paired) return launch_mac<2, true>(xx, gg, yy, B, O, C, F, s);
+  return launch_mac<2, false>(xx, gg, yy, B, O, C, F, s);
 }
 
 // o_start: B first-row offsets in host memory, copied into the kernel's

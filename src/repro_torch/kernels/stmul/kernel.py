@@ -29,7 +29,9 @@ from repro_torch.kernels._build import I32, I64, VP, CudaLibrary
 Tensor = torch.Tensor
 
 TOPK_MAX_K = 32  # per-thread candidate buffer of the readout kernel
-MAC_THREADS = 256  # threads per block of B1 (one per bin)
+MAC_THREADS = 128  # B1's block (two bins a thread)
+MAC_REG_ROWS = 9  # B1's grating rows held in registers at C = 1 (the paper's O)
+MAC_MAX_BLOCKS = 2**31 - 1  # B1's grid, one dimension
 MAC_GROUPED_MAX_ROWS = 256  # B2's batch rows: its offsets travel in a kernel parameter
 TOPK_THREADS = 256  # threads per block of the readout's first pass
 TOPK_FILL_BLOCKS = 4 * 132  # first-pass blocks that fill an H100: four per SM
@@ -53,11 +55,31 @@ def topk_plan(rows: int, L: int) -> tuple[int, int]:
     n = -(-n // 4) * 4
     return -(-L // n), n
 
+
+def mac_plan(B: int, O: int, C: int, F: int) -> tuple[int, int, str]:
+    """B1's launch plan, as ``stmul_mac`` computes it, for B batch rows
+    against O grating rows of C channels over F bins: ``(blocks, rows,
+    where)``.  Block ``k`` takes bin tile ``k // B`` (``2·MAC_THREADS``
+    bins, two a thread) and batch row ``k % B``, so a tile's B blocks sit
+    next to each other in the grid.  A block walks the O axis ``rows``
+    grating rows at a time, held ``where``:
+
+    * ``"registers"`` at C = 1: up to ``MAC_REG_ROWS`` rows;
+    * ``"global"`` at C > 1: all O rows, x and g read per output row."""
+    B, O, C, F = int(B), int(O), int(C), int(F)
+    if min(B, O, C, F) < 1:
+        raise ValueError(f"no MAC to plan: B={B}, O={O}, C={C}, F={F}")
+    blocks = -(-F // (2 * MAC_THREADS)) * B
+    if C == 1:
+        return blocks, min(O, MAC_REG_ROWS), "registers"
+    return blocks, O, "global"
+
+
 _LIB = CudaLibrary(
     "stmul",
     Path(__file__).resolve().parent / "csrc",
     {
-        "stmul_mac": [VP, VP, VP, I32, I32, I32, I64, I32, I32, VP],
+        "stmul_mac": [VP, VP, VP, I32, I32, I32, I64, I32, VP],
         "stmul_mac_grouped": [VP, VP, VP, VP, VP, I32, I32, I64, I32, I32, VP],
         "stmul_topk": [VP, VP, VP, VP, VP, I32, I64, I32, I32, I64, VP],
     },
@@ -72,7 +94,8 @@ def reset_launches() -> None:
 
 def spectral_mac_cuda(x: Tensor, g: Tensor, version: int = 2) -> Tensor:
     """B1: ``y[b, o, f] = Σ_c x[b, c, f] · g[o, c, f]`` on complex64
-    (B, C, F) and (O, C, F); returns complex64 (B, O, F)."""
+    (B, C, F) and (O, C, F); returns complex64 (B, O, F), launched as
+    :func:`mac_plan` says."""
     _build.require(x, "x", torch.complex64, 3)
     _build.require(g, "g", torch.complex64, 3)
     B, C, F = x.shape
@@ -81,12 +104,13 @@ def spectral_mac_cuda(x: Tensor, g: Tensor, version: int = 2) -> Tensor:
         raise ValueError(f"grating {tuple(g.shape)} does not match x {tuple(x.shape)}")
     if version not in (1, 2):
         raise ValueError(f"unknown stmul kernel version {version!r}")
-    if not (0 < B <= 65535 and 0 < O <= 65535):
-        raise ValueError(f"B={B}, O={O} outside the kernel's grid limits")
+    if min(B, O, C, F) < 1:
+        raise ValueError(f"empty MAC: x {tuple(x.shape)}, grating {tuple(g.shape)}")
+    if mac_plan(B, O, C, F)[0] > MAC_MAX_BLOCKS:
+        raise ValueError(f"x {tuple(x.shape)}, grating {tuple(g.shape)}: B1's grid is too large")
     y = torch.empty((B, O, F), dtype=torch.complex64, device=x.device)
     rc = _LIB.lib().stmul_mac(
-        x.data_ptr(), g.data_ptr(), y.data_ptr(), B, O, C, F, int(version),
-        MAC_THREADS, _build.stream(),
+        x.data_ptr(), g.data_ptr(), y.data_ptr(), B, O, C, F, int(version), _build.stream(),
     )
     _build.check(rc, "stmul_mac")
     _build.count(spectral_mac_cuda)

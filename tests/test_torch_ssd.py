@@ -155,3 +155,132 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         t_kernel.ssd_chunked_cuda(x, dt, A, B, C, 16)
     assert t_kernel.ssd_chunked_cuda.launches == 0
+
+
+# -- B5's three-pass decomposition (ref.ssd_three_pass_ref) ---------------------
+
+
+def _padded(ins, chunk):
+    """Pad L up to a chunk multiple with dt = 0, as ops.ssd does."""
+    pad = (-ins[0].shape[1]) % chunk
+    widths = lambda a: [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2)  # noqa: E731
+    x, dt, A, B, C = ins
+    return [np.pad(x, widths(x)), np.pad(dt, widths(dt)), A, np.pad(B, widths(B)), np.pad(C, widths(C))]
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("L", [64, 77])
+@pytest.mark.parametrize("Bb,H", [(2, 4), (1, 2)])
+def test_three_pass_matches_chunked_ref_and_reference_pallas(G, L, Bb, H):
+    """Chunk states, state passing and chunk scan together equal the plain
+    chunked form and the reference's Pallas kernel, L padded up to a chunk
+    multiple, Bb·H far below the card's 132 SMs (the case the chunk-parallel
+    split exists for)."""
+    ins = _inputs(8, Bb=Bb, L=L, H=H, G=min(G, H))
+    chunk = 16
+    y, S = t_ref.ssd_three_pass_ref(*T(*_padded(ins, chunk)), chunk)
+    y = y[:, :L]
+    want = t_ref.ssd_chunked_ref(*T(*_padded(ins, chunk)), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), want[0][:, :L].numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(S.numpy(), want[1].numpy(), rtol=1e-5, atol=1e-5)
+    _close((y, S), r_ops.ssd(*J(*ins), chunk=chunk, impl="pallas"))
+
+
+def test_three_pass_workspace_and_passes():
+    """Pass 1's outputs fill exactly the wrapper's workspace; pass 2's
+    entering states start at zero and chain by the chunk decay; the final
+    state is the plain version's."""
+    ins = T(*_inputs(9, L=48))
+    x, dt, A, B, C = ins
+    seg, dS = t_ref.ssd_chunk_states_ref(x, dt, A, B, 16)
+    Bb, L, H, P = x.shape
+    assert seg.shape == (Bb, H, 3, 16) and dS.shape == (Bb, H, 3, P, 8)
+    assert seg.numel() + dS.numel() == t_kernel.ssd_workspace_floats(Bb, H, 3, 16, P, 8)
+    S_in, S = t_ref.ssd_state_passing_ref(dS, seg)
+    assert torch.equal(S_in[:, :, 0], torch.zeros_like(S))
+    torch.testing.assert_close(S_in[:, :, 1], dS[:, :, 0])
+    torch.testing.assert_close(
+        S_in[:, :, 2], torch.exp(seg[:, :, 1, -1])[..., None, None] * dS[:, :, 0] + dS[:, :, 1]
+    )
+    _close((x, S), (x, t_ref.ssd_chunked_ref(*ins, chunk=16)[1]))
+
+
+def test_three_pass_mask_precedes_exp_under_strong_decay():
+    ins = list(_inputs(6, L=32, H=2, G=1))
+    ins[1] = np.full_like(ins[1], 4.0)
+    ins[2] = np.array([-16.0, -8.0], np.float32)
+    y, S = t_ref.ssd_three_pass_ref(*T(*ins), 16)
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    _close((y, S), t_ref.ssd_scan_ref(*T(*ins)))
+
+
+# -- 3×TF32: the kernel's product arithmetic, emulated --------------------------
+
+
+def _tf32(a):
+    """The kernel's high part: round to the nearest value with 10 explicit
+    mantissa bits, ties away from zero (as cvt.rna.tf32.f32 rounds finite
+    inputs)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(a):
+    """What the tensor core reads of a float32 operand: its top 19 bits."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mma_3xtf32(a, b):
+    """a (M, K) · b (K, N) as the kernel forms it: each operand split into
+    its rounded TF32 high part and the float32 rest (read truncated), per
+    k step of 8 three m16n8k8 products (lo·hi, hi·lo, hi·hi; exact
+    products) added to a float32 accumulator."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32_trunc(a - a_hi), _tf32_trunc(b - b_hi)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        for u, v in ((a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)):
+            acc = (acc.astype(np.float64) + u[:, s].astype(np.float64) @ v[s].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+def test_3xtf32_products_keep_float32_accuracy():
+    """One chunk's four products at mamba2-370m's (Q, P, N) = (128, 64,
+    128), on magnitudes like a layer's (decayed scores, dt-scaled x, a
+    carried state): the split's result is within 1e-6 relative L2 of
+    float64, while TF32 alone is not (so the bound is the split's)."""
+    Q, P, N = 128, 64, 128
+    rng = np.random.RandomState(10)
+    Cm, Bm = rng.randn(Q, N).astype(np.float32), rng.randn(Q, N).astype(np.float32)
+    X = (rng.randn(Q, P) * 0.05).astype(np.float32)
+    S_in = (rng.randn(P, N) * 3.0).astype(np.float32)
+    seg = np.cumsum(-np.abs(rng.randn(Q)) * 0.05).astype(np.float32)
+    decay = np.tril(np.exp(seg[:, None] - seg[None, :])).astype(np.float32)
+    scores = (Cm.astype(np.float64) @ Bm.T.astype(np.float64)).astype(np.float32) * decay
+    for a, b in ((Cm, Bm.T), (scores, X), (Cm, S_in.T), (X.T, Bm)):
+        exact = a.astype(np.float64) @ b.astype(np.float64)
+        rel = np.linalg.norm(_mma_3xtf32(a, b) - exact) / np.linalg.norm(exact)
+        assert rel < 1e-6, rel
+        one = _tf32(a).astype(np.float64) @ _tf32(b).astype(np.float64)
+        assert np.linalg.norm(one - exact) / np.linalg.norm(exact) > 1e-5
+    assert _tf32(np.float32(1 + 2**-11)) == np.float32(1 + 2**-10)  # a tie rounds away
+    assert _tf32(np.float32(-(1 + 2**-11))) == np.float32(-(1 + 2**-10))
+
+
+@pytest.mark.parametrize(
+    "Bb,nc,H,G", [(4, 16, 32, 1), (2, 8, 32, 1), (1, 16, 32, 1), (2, 4, 4, 1), (8, 64, 32, 1), (2, 4, 8, 2), (1, 1, 6, 3)]
+)
+def test_scan_heads_plan_keeps_the_card_filled(Bb, nc, H, G):
+    """The chunk scan walks runs of HB heads of one group: HB a power of
+    two dividing H / G, the largest that keeps at least
+    SCAN_MIN_BLOCKS_PER_SM blocks per SM of an H100 (132 SMs)."""
+    sms = 132
+    hb = t_kernel.scan_heads_per_block(Bb, nc, H, G, sms)
+    assert hb & (hb - 1) == 0 and (H // G) % hb == 0
+    assert hb == 1 or Bb * nc * H // hb >= t_kernel.SCAN_MIN_BLOCKS_PER_SM * sms
+    assert (H // G) % (2 * hb) or Bb * nc * H // (2 * hb) < t_kernel.SCAN_MIN_BLOCKS_PER_SM * sms
+    # the serving shapes: mamba2-370m's 32 heads in one group
+    assert t_kernel.scan_heads_per_block(4, 16, 32, 1, sms) == 8
+    assert t_kernel.scan_heads_per_block(2, 8, 32, 1, sms) == 2

@@ -333,3 +333,64 @@ def test_kernel_constants_mirror_the_cuda_source():
     assert const("kTopkThreads") == t_kernel.TOPK_THREADS
     assert const("kTopkMaxK") == t_kernel.TOPK_MAX_K
     assert const("kMacGroupedMaxRows") == t_kernel.MAC_GROUPED_MAX_ROWS
+    assert const("kMacThreads") == t_kernel.MAC_THREADS
+    assert const("kMacRegRows") == t_kernel.MAC_REG_ROWS
+
+
+# -- B1's launch plan (kernel.mac_plan) ------------------------------------------
+
+
+def _blocks_of_plan(blocks, B, F, paired):
+    """Every block's (bins, batch row) as the kernel assigns them: tile
+    blk // B, row blk % B; thread t owns bins 2t and 2t + 1 of the tile
+    when paired, else t and t + threads, the second only inside [0, F)."""
+    threads = t_kernel.MAC_THREADS
+    t = np.arange(threads)
+    for blk in range(blocks):
+        tile, b = divmod(blk, B)
+        f0 = 2 * tile * threads + (2 * t if paired else t)
+        step = 1 if paired else threads
+        live = f0 < F
+        yield np.concatenate([f0[live], (f0 + step)[live & (f0 + step < F)]]), b
+
+
+@pytest.mark.parametrize(
+    "B,O,C,F",
+    [(8, 9, 1, 399_600), (16, 9, 1, 140_400), (3, 20, 1, 1001), (1, 1, 1, 7), (4, 9, 3, 10_000),
+     (4, 9, 3, 10_001), (5, 40, 12, 513), (2, 9, 13, 64), (2, 9, 48, 64), (3, 5, 49, 64), (1, 3, 200, 33)],
+)
+def test_mac_plan_covers_every_bin_and_row(B, O, C, F):
+    """B1's plan tiles the (batch row, bin) plane (paired and scalar
+    ownership alike) and the grating rows exactly once, registers only
+    at C = 1; chunking the O axis as planned leaves the plain version's
+    result bitwise unchanged."""
+    blocks, rows, where = t_kernel.mac_plan(B, O, C, F)
+    assert blocks == -(-F // (2 * t_kernel.MAC_THREADS)) * B and 1 <= rows <= O
+    if where == "registers":
+        assert C == 1 and rows == min(O, t_kernel.MAC_REG_ROWS)
+    else:
+        assert where == "global" and C > 1 and rows == O
+    chunks = [list(range(o0, min(o0 + rows, O))) for o0 in range(0, O, rows)]
+    assert sum(chunks, []) == list(range(O))
+    for paired in ((True, False) if F % 2 == 0 else (False,)):
+        seen = np.zeros((B, F), np.int64)
+        for bins, b in _blocks_of_plan(blocks, B, F, paired):
+            seen[b, bins] += 1
+        assert (seen == 1).all()
+    if F <= 10_001:
+        rng = np.random.RandomState(O + C + F)
+        x, g = T(cplx(rng, B, C, F)), T(cplx(rng, O, C, F))
+        for version in (1, 2):
+            whole = t_ref.spectral_mac_ref(x, g, version)
+            parts = torch.cat([t_ref.spectral_mac_ref(x, g[ch[0]:ch[-1] + 1], version) for ch in chunks], 1)
+            assert torch.equal(whole, parts)
+
+
+def test_mac_plan_at_the_serving_shapes():
+    # both main shapes: the grating in one chunk, one block per (tile, row)
+    assert t_kernel.mac_plan(8, 9, 1, 399_600) == (1561 * 8, 9, "registers")
+    assert t_kernel.mac_plan(16, 9, 1, 140_400) == (549 * 16, 9, "registers")
+    assert t_kernel.mac_plan(1, 20, 1, 256) == (1, 9, "registers")
+    assert t_kernel.mac_plan(4, 9, 3, 257) == (8, 9, "global")
+    with pytest.raises(ValueError):
+        t_kernel.mac_plan(1, 0, 1, 256)
