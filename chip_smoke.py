@@ -17,7 +17,10 @@ Phases, each reported on lines of its own:
              (HGMMA, wgmma) and cp.async copies (LDGSTS) in their SASS
              (``cuobjdump``); B5's chunk-state and chunk-scan kernels
              must hold tensor-core MMAs (HMMA, 3xTF32 mma.sync), the
-             scan also cp.async copies.
+             scan also cp.async copies; B4's tensor-core kernel
+             (``conv3d_tc.cu``) warpgroup MMAs (HGMMA, 3xTF32 wgmma),
+             tensor-map copies (UTMALDG) and bulk copies (UBLKCP), with
+             no wgmma serialization reported by ptxas.
 2. serve   — a VideoSearchServer at the paper geometry (60x80 frames,
              four tenants of 9x1x30x40x8 kernels, 64-frame windows, 4
              windows per chunk) answers six 1024-frame requests, two
@@ -112,11 +115,14 @@ Phases, each reported on lines of its own:
              before the phase, equal to the digital calls made.  B4 is
              held against its plain version (relative L2 <= 1e-5 in
              float32, <= 1e-2 in bf16 against the plain version on the
-             same inputs upcast) at the batch and stream shapes,
+             same inputs upcast) at the batch and stream shapes (the
+             tensor-core route, which ``kernel.route`` must give them),
              kernels_bench's C3D case (float32 and bf16) and the
-             reference test sweep's shapes, and timed beside it (the
+             reference test sweep's shapes (the FMA route), and timed
+             beside it (the
              plain version is one cuDNN ``F.conv3d`` call, so its time is
-             also the library time); B1 likewise, bitwise, at the
+             also the library time; float32 rows carry both bounds,
+             TF32 / 3 and float32 FMA); B1 likewise, bitwise, at the
              classifier's shapes (16 spectra against a (9, 1, F)
              grating, F from the 60x80x16 clip's FFT grid).
 
@@ -302,7 +308,11 @@ def phase_build(libs: dict) -> dict:
                 f"{f.get('spill_store_bytes')} bytes spill stores, "
                 f"{f.get('spill_load_bytes')} bytes spill loads, {f.get('stack_bytes')} bytes stack"
             )
-        report[name] = {"seconds": info["seconds"], "path": info["path"], "ptxas": funcs}
+        warnings = [ln.strip() for ln in info["log"].splitlines() if "warning" in ln.lower()]
+        for ln in warnings:
+            print(f"build:   {ln}")
+        report[name] = {"seconds": info["seconds"], "path": info["path"], "ptxas": funcs,
+                        "warnings": warnings}
     return report
 
 
@@ -370,6 +380,26 @@ def check_flash_build(flash_kernel, so_path: str) -> dict:
     if len(wg) != len(flash_kernel.HEAD_DIMS) or not all(c["HGMMA"] and c["LDGSTS"] for c in wg.values()):
         raise AssertionError(f"the bf16 flash builds lack wgmma or cp.async: {wg}")
     return {"plan": plan, "sass": wg}
+
+
+def check_conv3d_build(so_path: str, warnings: list[str]) -> dict | None:
+    """B4's tensor-core kernel issues warpgroup tensor-core MMAs (HGMMA,
+    3xTF32 wgmma) and asynchronous copies (UTMALDG: TMA tensor-map loads
+    of x; UBLKCP: bulk copies of B) in its SASS, and ptxas warned of no
+    wgmma serialization for the library."""
+    serial = [ln for ln in warnings if "wgmma" in ln and "serializ" in ln]
+    if serial:
+        raise AssertionError("ptxas serialized wgmma in the conv3d library:\n" + "\n".join(serial))
+    counts = _sass_counts(so_path, ("HGMMA", "UTMALDG", "UBLKCP", "LDS", "FFMA"))
+    if counts is None:
+        print("build: conv3d SASS: cuobjdump not found, instructions not counted")
+        return None
+    tc = {f: c for f, c in counts.items() if "conv3d_tc_kernel" in f}
+    for f, c in tc.items():
+        print(f"build: conv3d SASS {f}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    if len(tc) != 1 or not all(c["HGMMA"] and c["UTMALDG"] and c["UBLKCP"] for c in tc.values()):
+        raise AssertionError(f"the conv3d tensor-core kernel lacks wgmma or asynchronous copies: {tc}")
+    return tc
 
 
 def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
@@ -1014,8 +1044,7 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
             "bound_ms": bound,
             "bound_by": by,
             "bound_f32_fma_ms": bound_f32,
-            "passes_ms": passes,
-            "library_ms": None,
+                "library_ms": None,
             "shape": {"Bb": Bb, "L": L, "H": H, "G": G, "P": P, "N": N, "chunk": cfg.chunk},
         })
         del args
@@ -1304,34 +1333,46 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
     return report, rows
 
 
-def _conv_row(tag, x, w, launches, rtol, reps=20) -> dict:
-    """One B4 ``kernel:`` row: the kernel against its plain version on the
+def _conv_row(tag, x, w, launches, rtol, reps=20, want_route=None) -> dict:
+    """One B4 ``kernel:`` row: the kernel ``kernel.route`` names (and, if
+    given, it must be ``want_route``) against its plain version on the
     same inputs (bf16 inputs upcast to float32 for the plain version),
     then both timed with CUDA events.  The plain version is one cuDNN
-    ``F.conv3d`` call (TF32 off), so its time is also the library time."""
+    ``F.conv3d`` call (TF32 off), so its time is also the library time.
+    Bound: bf16 at the bf16 tensor-core rate; float32 at the TF32 rate / 3
+    (3xTF32 keeps float32 accuracy), the FMA pipes' bound beside it."""
     from repro_torch.kernels.conv3d import kernel as conv_kernel
     from repro_torch.kernels.conv3d import ref as conv_ref
 
+    route = conv_kernel.route(tuple(x.shape), tuple(w.shape), x.dtype)
+    if want_route is not None and route != want_route:
+        raise AssertionError(f"B4 {tag} routed to {route}, not {want_route}")
     got = conv_kernel.conv3d_cuda(x, w).float()
     want = conv_ref.conv3d_ref(x.float(), w.float())
     rel = _rel_l2(got, want)
     mx = float(torch.max(torch.abs(got - want)))
+    cost = ((x.numel() + w.numel() + got.numel()) * x.element_size(),
+            conv_kernel.flops(tuple(x.shape), tuple(w.shape)))
+    if x.dtype == torch.bfloat16:
+        (bound, by), bound_fma = _bound_ms(*cost, rate=BF16_FLOPS), None
+    else:
+        (bound, by), bound_fma = _bound_ms(*cost, rate=TF32_FLOPS / 3), _bound_ms(*cost)[0]
     print(
-        f"classify: B4 {tag} x {tuple(x.shape)} w {tuple(w.shape)} {x.dtype} vs plain: "
-        f"rel L2 {rel:.3g}, max abs {mx:.3g}"
+        f"classify: B4 {tag} x {tuple(x.shape)} w {tuple(w.shape)} {x.dtype} route {route} vs plain: "
+        f"rel L2 {rel:.3g}, max abs {mx:.3g}; bound {bound:.4f} ms ({by})"
+        + ("" if bound_fma is None else f" at TF32 / 3, float32 FMA {bound_fma:.4f}")
     )
     if not (rel <= rtol and torch.isfinite(got).all()):
         raise AssertionError(f"B4 {tag} disagrees with its plain version (rel L2 {rel:.3g})")
-    nbytes = (x.numel() + w.numel() + got.numel()) * x.element_size()
     del got, want
     ms = _time_ms(lambda: conv_kernel.conv3d_cuda(x, w), reps)
     plain_ms = _time_ms(lambda: conv_ref.conv3d_ref(x, w), max(3, reps // 4))
-    rate = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
-    bound, by = _bound_ms(nbytes, conv_kernel.flops(tuple(x.shape), tuple(w.shape)), rate)
+    source = "conv3d_tc.cu" if route == "wgmma" else "conv3d.cu"
     return {
         "name": f"conv3d{tag}",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/conv3d/csrc/conv3d.cu",
+        "b4_route": route,
+        "source": f"src/repro_torch/kernels/conv3d/csrc/{source}",
         "replaces": "src/repro/kernels/conv3d/kernel.py:41",
         "launches": launches,
         "max_abs_err": mx,
@@ -1342,6 +1383,7 @@ def _conv_row(tag, x, w, launches, rtol, reps=20) -> dict:
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": by,
+        "bound_f32_fma_ms": bound_fma,
         "library_ms": plain_ms,
         "shape": {"x": list(x.shape), "w": list(w.shape), "dtype": str(x.dtype).removeprefix("torch.")},
     }
@@ -1536,9 +1578,10 @@ def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
     w = params.conv_w.detach()
     xb, xs = torch.from_numpy(batches[0]).cuda(), torch.from_numpy(streams).cuda()
     rows = [
-        _conv_row(f"[{xb.shape[0]}x{'x'.join(map(str, xb.shape[2:]))}]", xb, w, b4, CONV_RTOL),
+        _conv_row(f"[{xb.shape[0]}x{'x'.join(map(str, xb.shape[2:]))}]", xb, w, b4, CONV_RTOL,
+                  want_route="wgmma"),
         _conv_row(f"[{xs.shape[0]}x{'x'.join(map(str, xs.shape[2:]))}]", xs, w, b4, CONV_RTOL,
-                  reps=5),
+                  reps=5, want_route="wgmma"),
     ]
     del xb, xs
     xc = torch.randn((1, 16, 14, 14, 8), generator=gen, device="cuda")
@@ -1614,6 +1657,8 @@ def main() -> int:
     })}
     report["build"]["flash_checks"] = check_flash_build(flash_kernel, report["build"]["flash"]["path"])
     report["build"]["ssd_sass"] = check_ssd_build(report["build"]["ssd"]["path"])
+    report["build"]["conv3d_sass"] = check_conv3d_build(
+        report["build"]["conv3d"]["path"], report["build"]["conv3d"]["warnings"])
     report["serve"] = phase_serve(kernel, args.seed)
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
     report["lm"], ssd_rows = phase_lm(args.seed)

@@ -1,5 +1,7 @@
-// Direct valid 3-D correlation (kernel B4) for Hopper (sm_90a), plain C
-// entry point, bound with ctypes by repro_torch/kernels/conv3d/kernel.py.
+// Direct valid 3-D correlation (kernel B4) for Hopper (sm_90a) on the
+// float32 FMA pipes, plain C entry point, bound with ctypes by
+// repro_torch/kernels/conv3d/kernel.py, whose route() sends each call here
+// or to the 3×TF32 tensor-core kernel of conv3d_tc.cu.
 //
 // Replaces: src/repro/kernels/conv3d/kernel.py, conv3d_pallas (the digital
 // C3D baseline's hot spot).  Plain version: repro_torch/kernels/conv3d/
@@ -40,11 +42,11 @@
 // Bound.  2·OH·OW·OT·O·C·kh·kw·kt FLOP against (|x| + |w| + |y|) bytes: at
 // the serving batch, x (16, 1, 60, 80, 16) against w (9, 1, 30, 40, 8),
 // 31.63 GFLOP against 11.8 MB, ~2,700 FLOP per byte, so it is bound by
-// operations (0.472 ms at 67 TFLOP/s float32).  This first kernel runs
-// them on the float32 FMA pipes; the TF32 tensor cores would lose the
-// float32 accuracy the digital baseline is held to (3×TF32 splitting, or
-// an implicit-GEMM layout for C ≥ 8, is later work).  Offsets into x and
-// y are 64-bit: long streams grow B·O·OH·OW·OT without bound.
+// operations (0.472 ms at 67 TFLOP/s float32).  This kernel runs them on
+// the float32 FMA pipes, and serves what route() does not send to the
+// tensor cores: bfloat16, kt other than 8 and more than 9 output channels
+// (C3D's 3×3×3, the reference test sweep).  Offsets into x and y are
+// 64-bit: long streams grow B·O·OH·OW·OT without bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

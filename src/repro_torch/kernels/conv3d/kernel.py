@@ -1,20 +1,28 @@
-"""Hopper CUDA kernel of the direct valid 3-D correlation (B4) and its
+"""Hopper CUDA kernels of the direct valid 3-D correlation (B4) and their
 ctypes wrapper.
 
-The source is ``csrc/conv3d.cu`` (a plain C entry point; the note at its
-top says what it replaces, what bounds it on the card and how its design
-answers that).  :mod:`repro_torch.kernels._build` compiles it with
-``nvcc`` for ``sm_90a`` on first use and loads it with ``ctypes``;
-:func:`build` does it eagerly and reports the compile.
+Two hand-written kernels, one library: ``csrc/conv3d_tc.cu`` runs the
+products on the tensor cores in 3xTF32 (``wgmma``), ``csrc/conv3d.cu`` on
+the float32 FMA pipes (the note at the top of each says what it
+replaces, what bounds it on the card and how its design answers that).
+:func:`route`, a pure function of the shapes and the dtype, says which one
+a call takes: the tensor-core kernel for float32 with kt = 8 frames and at
+most 9 output channels (the paper geometry's batch and streams), the FMA
+kernel for the rest (bfloat16, C3D's 3x3x3, other kt).
+:mod:`repro_torch.kernels._build` compiles both with ``nvcc`` for
+``sm_90a`` on first use and loads them with ``ctypes``; :func:`build`
+does it eagerly and reports the compile.
 
-:func:`plan` chooses the instantiation and the block tile from the
-shapes alone; it is plain Python, so the CPU tests check that its tiles
-cover every output once and fit in shared memory.
+:func:`plan` (FMA) and :func:`tc_plan` (tensor cores) choose each
+kernel's tile from the shapes alone; they are plain Python, so the CPU
+tests check that the tiles cover every output once and fit in shared
+memory.
 
 :func:`conv3d_cuda` takes CUDA tensors only, checks device, dtype,
-shape, contiguity and channel agreement, allocates its output with
-``torch.empty``, launches on ``torch.cuda.current_stream()``, raises if
-the launch reported an error, and adds one to its ``launches`` counter.
+shape, contiguity and channel agreement, allocates its output (and the
+tensor-core route's split workspace) with ``torch.empty``, launches on
+``torch.cuda.current_stream()``, raises if the launch reported an
+error, and adds one to its ``launches`` counter.
 Its plain version is :func:`repro_torch.kernels.conv3d.ref.conv3d_ref`;
 the routing between the two (by the tensor's device) is in
 :mod:`repro_torch.kernels.conv3d.ops`.
@@ -43,10 +51,22 @@ MAX_SMEM = 232448  # bytes of dynamic shared memory a Hopper block may take
 SMS = 132
 FILL_THREADS = SMS * 512  # resident threads at which the card counts as full
 
+# the tensor-core kernel (csrc/conv3d_tc.cu): kt of one k8 step, channels
+# of its 24-row B, MT m64 column tiles per warpgroup, NWG warpgroups per
+# block, TC_STEP_FLOATS floats of B per k step
+TC_KT, TC_MAX_O = 8, 9
+TC_MT, TC_NWG = 7, 2
+TC_THREADS = 128 * TC_NWG
+TC_ROWS = 64
+TC_STEP_FLOATS = 24 * TC_KT
+
 _LIB = CudaLibrary(
     "conv3d",
     Path(__file__).resolve().parent / "csrc",
-    {"conv3d_fwd": [VP] * 3 + [I32] * 16 + [VP]},
+    {
+        "conv3d_fwd": [VP] * 3 + [I32] * 16 + [VP],
+        "conv3d_tc_fwd": [VP] * 4 + [I32] * 11 + [VP],
+    },
 )
 build = _LIB.build
 
@@ -127,6 +147,78 @@ def plan(x_shape, w_shape) -> Plan:
     return Plan(ob, rt, bh, bw, ntt, threads, blocks(bh, ntt), smem)
 
 
+@dataclasses.dataclass(frozen=True)
+class TcPlan:
+    """One call of the tensor-core kernel: a tile's rows (``bi`` output
+    rows × ``bk`` frames, at most 64), the block size, the grid, the
+    dynamic shared memory in bytes and the split workspace in floats."""
+
+    bi: int
+    bk: int
+    threads: int
+    blocks: int
+    smem: int
+    workspace_floats: int
+
+
+def _tc_smem(bi: int, bk: int, kw: int) -> int:
+    """Shared bytes of the tensor-core kernel, as ``csrc/conv3d_tc.cu``
+    lays them out: two stages of the x slab's hi and lo planes (columns of
+    bk + 7 frames rounded up to 4, each plane on 128 bytes) and kw k steps
+    of B (on 256 bytes), two barriers, and 256 bytes of slack to align
+    them."""
+    nc = TC_NWG * TC_MT + kw - 1
+    cs = -(-(bk + TC_KT - 1) // 4) * 4
+    plane = -(-bi * nc * cs // 32) * 32
+    xbytes = -(-8 * plane // 256) * 256
+    stage = -(-(xbytes + 4 * kw * TC_STEP_FLOATS) // 256) * 256
+    return 2 * stage + 16 + 256
+
+
+def _tc_tile(x_shape, w_shape) -> tuple[int, int] | None:
+    """The tile rows (bi, bk) that waste the fewest m64 rows among frame
+    runs of OT (up to 64), 64, 32, 16 and 8, or None when none fits the
+    shared memory."""
+    _, _, H, _, T = (int(n) for n in x_shape)
+    _, _, kh, kw, kt = (int(n) for n in w_shape)
+    OH, OT = H - kh + 1, T - kt + 1
+    best = None
+    for bk in sorted({min(OT, TC_ROWS), 64, 32, 16, 8}, reverse=True):
+        bi = max(1, min(OH, TC_ROWS // bk))
+        used = OH * OT / (-(-OH // bi) * -(-OT // bk) * TC_ROWS)
+        if _tc_smem(bi, bk, kw) <= MAX_SMEM and (best is None or used > best[0]):
+            best = (used, bi, bk)
+    return None if best is None else best[1:]
+
+
+def route(x_shape, w_shape, dtype: torch.dtype) -> str:
+    """Which kernel a call takes: ``"wgmma"`` (``csrc/conv3d_tc.cu``) for
+    float32 with kt = 8 and at most 9 output channels when its tile fits,
+    else ``"fma"`` (``csrc/conv3d.cu``)."""
+    O, kt = int(w_shape[0]), int(w_shape[4])
+    if dtype == torch.float32 and kt == TC_KT and O <= TC_MAX_O:
+        if _tc_tile(x_shape, w_shape) is not None:
+            return "wgmma"
+    return "fma"
+
+
+def tc_plan(x_shape, w_shape) -> TcPlan:
+    """The tensor-core kernel's launch for x (B, C, H, W, T) against w
+    (O, C, kh, kw, 8); raises ``ValueError`` for shapes :func:`route`
+    does not send there."""
+    B, C, H, W, T = (int(n) for n in x_shape)
+    O, _, kh, kw, kt = (int(n) for n in w_shape)
+    tile = _tc_tile(x_shape, w_shape) if kt == TC_KT and O <= TC_MAX_O else None
+    if tile is None:
+        raise ValueError(f"no tensor-core tile for x {tuple(x_shape)} and w {tuple(w_shape)}")
+    bi, bk = tile
+    OH, OW, OT = H - kh + 1, W - kw + 1, T - kt + 1
+    blocks = B * -(-OH // bi) * -(-OW // (TC_NWG * TC_MT)) * -(-OT // bk)
+    tp = -(-T // 4) * 4
+    ws = 2 * B * C * H * W * tp + C * kh * kw * TC_STEP_FLOATS
+    return TcPlan(bi, bk, TC_THREADS, blocks, _tc_smem(bi, bk, kw), ws)
+
+
 def flops(x_shape, w_shape) -> int:
     """Multiply-adds of a valid correlation, counted as two operations."""
     B, C, H, W, T = x_shape
@@ -140,7 +232,9 @@ def reset_launches() -> None:
 
 
 def conv3d_cuda(x: Tensor, w: Tensor) -> Tensor:
-    """B4: the valid 3-D correlation of :func:`ref.conv3d_ref`.
+    """B4: the valid 3-D correlation of :func:`ref.conv3d_ref`, on the
+    kernel :func:`route` names (the tensor-core route runs three
+    launches: split x, split w, the products; it counts one).
 
     x (B, C, H, W, T) and w (O, C, kh, kw, kt): one dtype, float32 or
     bfloat16, contiguous CUDA tensors on one device; the kernel must fit
@@ -161,16 +255,24 @@ def conv3d_cuda(x: Tensor, w: Tensor) -> Tensor:
         raise ValueError(f"no valid correlation of x {tuple(x.shape)} with w {tuple(w.shape)}")
     if max(*x.shape, *w.shape) >= 2**31:
         raise ValueError("a dimension is outside the kernel's 32-bit sizes")
-    p = plan(x.shape, w.shape)
+    tc = route(x.shape, w.shape, x.dtype) == "wgmma"
+    p = tc_plan(x.shape, w.shape) if tc else plan(x.shape, w.shape)
     if p.blocks >= 2**31:
         raise ValueError(f"x {tuple(x.shape)} needs {p.blocks} blocks, over the grid's 2^31")
     y = torch.empty((B, O, OH, OW, OT), dtype=x.dtype, device=x.device)
-    rc = _LIB.lib().conv3d_fwd(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(),
-        B, C, H, W, T, O, kh, kw, kt, DTYPES[x.dtype],
-        p.ob, p.rt, p.bh, p.bw, p.ntt, p.threads, _build.stream(),
-    )
-    _build.check(rc, "conv3d_fwd")
+    if tc:
+        ws = torch.empty(p.workspace_floats, dtype=torch.float32, device=x.device)
+        rc = _LIB.lib().conv3d_tc_fwd(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), ws.data_ptr(),
+            B, C, H, W, T, O, kh, kw, kt, p.bi, p.bk, _build.stream(),
+        )
+    else:
+        rc = _LIB.lib().conv3d_fwd(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(),
+            B, C, H, W, T, O, kh, kw, kt, DTYPES[x.dtype],
+            p.ob, p.rt, p.bh, p.bw, p.ntt, p.threads, _build.stream(),
+        )
+    _build.check(rc, "conv3d_tc_fwd" if tc else "conv3d_fwd")
     _build.count(conv3d_cuda)
     return y
 

@@ -8,6 +8,10 @@ convolutions in TF32 unless told otherwise, the reference at
 ``Precision.HIGHEST``.  bfloat16 inputs are summed in float32 and the
 result rounded to their dtype, as the kernel does.  It is the kernel's
 plain version on the CPU and its yardstick on the card.
+
+:func:`conv3d_3xtf32_ref` is a CPU model of the tensor-core kernel's
+arithmetic (``csrc/conv3d_tc.cu``), for the tests only: the same
+correlation from the 3xTF32 split of x and w.
 """
 
 from __future__ import annotations
@@ -22,3 +26,23 @@ def conv3d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (B, C, H, W, T), w: (O, C, kh, kw, kt) → (B, O, H', W', T')."""
     with full_precision():
         return F.conv3d(x.float(), w.float()).to(x.dtype)
+
+
+def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 v = hi + lo as the kernel splits it: hi rounded to TF32 (10
+    explicit mantissa bits, ties away from zero, as cvt.rna rounds), lo the
+    rest as the tensor core reads it (its top 19 bits: truncated)."""
+    bits = v.float().contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = ((v.float() - hi).view(torch.int32) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def conv3d_3xtf32_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The valid correlation of float32 x and w as the tensor-core kernel
+    forms it: hi·hi + hi·lo + lo·hi of the TF32 split (lo·lo dropped), the
+    products exact and summed in float64, rounded to float32 once."""
+    xh, xl = (t.double() for t in tf32_split(x))
+    wh, wl = (t.double() for t in tf32_split(w))
+    y = F.conv3d(xh, wh + wl) + F.conv3d(xl, wh)
+    return y.float()

@@ -7,15 +7,21 @@ unrolls every tap, so the paper-geometry case (9,600 taps) is held
 against the reference's ``conv3d_ref`` (a lax.conv) alone.
 
 On the CPU ``ops.conv3d`` runs the kernel's plain version; the CUDA
-kernel itself is held against that plain version on the card by
-``chip_smoke.py``.  What the CPU can check of the kernel is its launch
-plan (``kernel.plan``): that the tiles cover every output exactly once
-and fit the card's limits.
+kernels themselves are held against that plain version on the card by
+``chip_smoke.py``.  What the CPU can check of them is which one a call
+takes (``kernel.route``), their launch plans (``kernel.plan`` for the
+FMA kernel, ``kernel.tc_plan`` for the tensor-core kernel): that the
+tiles cover every output exactly once and fit the card's limits; and the
+tensor-core kernel's 3xTF32 arithmetic, through its CPU model
+``ref.conv3d_3xtf32_ref``.
 
 Tolerances: float32 sums of at most a few hundred products (the sweep)
 agree to 1e-5 of the largest output; the paper-geometry clip's 9,600-tap
 sums to relative L2 1e-5; bfloat16 outputs, each a float32 sum rounded
-once to bfloat16, to relative L2 1e-2 (one bfloat16 step is 2^-8).
+once to bfloat16, to relative L2 1e-2 (one bfloat16 step is 2^-8).  The
+3xTF32 model keeps float32 accuracy: within 1e-6 relative L2 of float64
+(the dropped lo·lo is ~2^-22 of each product), where TF32 alone is off
+by ~3e-4.
 """
 
 import os
@@ -40,6 +46,9 @@ from repro_torch.kernels.conv3d import ops as t_ops  # noqa: E402
 from repro_torch.kernels.conv3d import ref as t_ref  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONV_RTOL = 1e-5  # relative L2 that chip_smoke.py holds B4 to in float32
+BATCH = ((16, 1, 60, 80, 16), (9, 1, 30, 40, 8))  # the serving batch
+STREAMS = ((4, 1, 60, 80, 512), (9, 1, 30, 40, 8))  # four 512-frame streams
 
 # the reference test's sweep (b 1–2, c 1–4, o 1–6, k 1–3, h 6–14, t 4–10;
 # x (b, c, h, h+2, t), w (o, c, k, k, min(k, t))), enumerated instead of
@@ -201,3 +210,172 @@ def test_plan_refuses_a_kernel_row_over_shared_memory():
 
 def test_flops_of_the_serving_batch():
     assert t_kernel.flops((16, 1, 60, 80, 16), (9, 1, 30, 40, 8)) == 2 * 16 * 102_951 * 9_600
+
+
+# -- the tensor-core route ------------------------------------------------------
+
+
+def test_3xtf32_model_keeps_float32_accuracy_at_the_paper_geometry():
+    """One clip against 9 kernels of 30x40x8 (9,600-tap sums): the
+    kernel's split arithmetic is within 1e-6 of float64 and within
+    CONV_RTOL of the plain version, while TF32 alone is not within 1e-6
+    (so the bound is the split's)."""
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.rand(1, 1, 60, 80, 16).astype(np.float32))
+    w = torch.from_numpy(rng.randn(9, 1, 30, 40, 8).astype(np.float32))
+    exact = torch.nn.functional.conv3d(x.double(), w.double()).numpy()
+    got = t_ref.conv3d_3xtf32_ref(x, w)
+    assert got.dtype == torch.float32 and got.shape == (1, 9, 31, 41, 9)
+    assert _rel_l2(got.numpy(), exact) <= 1e-6
+    assert _rel_l2(got.numpy(), t_ref.conv3d_ref(x, w).numpy()) <= CONV_RTOL
+    xh, _ = t_ref.tf32_split(x)
+    wh, _ = t_ref.tf32_split(w)
+    tf32_only = torch.nn.functional.conv3d(xh.double(), wh.double()).numpy()
+    assert _rel_l2(tf32_only, exact) > 1e-6
+
+
+def _rz32(a):
+    """float64 -> float32 rounded toward zero, as the tensor cores' float32
+    accumulation rounds."""
+    f = a.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(a)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tensor_core_sum(x, w, row_steps):
+    """One output channel's 9,600-tap sums as the tensor-core kernel forms
+    them: per k step of 8 taps, x_hi·w_hi then x_lo·w_hi into one
+    accumulator and x_hi·w_lo into another, each add rounded toward zero;
+    every ``row_steps`` steps (0: never) both are added to a float32 sum
+    and restart from zero."""
+    xh, xl = (t.numpy().astype(np.float64) for t in t_ref.tf32_split(torch.from_numpy(x)))
+    wh, wl = (t.numpy().astype(np.float64) for t in t_ref.tf32_split(torch.from_numpy(w)))
+    total = np.zeros(x.shape[0], np.float32)
+    acc, acc_lo = np.zeros_like(total), np.zeros_like(total)
+    for s in range(x.shape[1] // 8):
+        k = slice(8 * s, 8 * s + 8)
+        acc = _rz32(acc + xh[:, k] @ wh[k])
+        acc = _rz32(acc + xl[:, k] @ wh[k])
+        acc_lo = _rz32(acc_lo + xh[:, k] @ wl[k])
+        if row_steps and (s + 1) % row_steps == 0:
+            total = total + acc + acc_lo
+            acc[:], acc_lo[:] = 0, 0
+    return total + acc + acc_lo
+
+
+def test_row_sums_in_float32_keep_the_bound_under_truncating_accumulation():
+    """The tensor cores round their float32 accumulation toward zero, so a
+    sum over the paper geometry's 1,200 k steps drifts past CONV_RTOL;
+    restarting each kernel row's 40 steps from zero and adding the rows in
+    float32, as the kernel does, keeps it well inside."""
+    rng = np.random.RandomState(11)
+    x = rng.rand(400, 9600).astype(np.float32)
+    w = rng.randn(9600).astype(np.float32)
+    exact = x.astype(np.float64) @ w.astype(np.float64)
+    assert _rel_l2(_tensor_core_sum(x, w, 0), exact) > CONV_RTOL
+    assert _rel_l2(_tensor_core_sum(x, w, 40), exact) <= CONV_RTOL / 3
+
+
+def test_tf32_split_rounds_as_the_kernel():
+    """hi keeps 10 explicit mantissa bits, rounded half away from zero;
+    lo is the rest truncated to TF32; hi + lo is within 2^-21 of v."""
+    v = torch.tensor([1.0 + 2**-11, -(1.0 + 2**-11), 1.0 + 2**-11 - 2**-23, 3.0, 1e-3, -7.25e5])
+    hi, lo = t_ref.tf32_split(v)
+    assert hi[0] == 1.0 + 2**-10 and hi[1] == -(1.0 + 2**-10)  # a tie goes away from zero
+    assert hi[2] == 1.0  # below the tie rounds down
+    assert hi[3] == 3.0 and lo[3] == 0.0
+    bits = torch.cat([hi, lo]).view(torch.int32)
+    assert ((bits & 0x1FFF) == 0).all()  # both are TF32 values
+    assert (torch.abs(hi.double() + lo.double() - v.double()) <= 2**-21 * torch.abs(v.double())).all()
+
+
+@pytest.mark.parametrize(
+    "x_shape,w_shape,dtype,want",
+    [
+        (*BATCH, torch.float32, "wgmma"),
+        (*STREAMS, torch.float32, "wgmma"),
+        ((1, 1, 60, 80, 16), (9, 1, 30, 40, 8), torch.float32, "wgmma"),  # one clip
+        (*BATCH, torch.bfloat16, "fma"),
+        ((1, 16, 14, 14, 8), (16, 16, 3, 3, 3), torch.float32, "fma"),  # C3D, kt 3
+        ((1, 16, 14, 14, 8), (16, 16, 3, 3, 3), torch.bfloat16, "fma"),
+        ((1, 1, 60, 80, 16), (9, 1, 30, 40, 3), torch.float32, "fma"),  # kt 3
+        ((1, 1, 20, 24, 10), (3, 1, 7, 9, 4), torch.float32, "fma"),  # the smoke config
+        ((1, 1, 60, 80, 32), (9, 1, 30, 40, 16), torch.float32, "fma"),  # kt 16
+        ((1, 1, 60, 80, 16), (10, 1, 30, 40, 8), torch.float32, "fma"),  # O over 9
+        ((1, 1, 4, 300, 16), (9, 1, 1, 200, 8), torch.float32, "fma"),  # B over shared memory
+    ]
+    + [
+        ((b, c, h, h + 2, t), (o, c, k, k, min(k, t)), torch.float32, "fma")
+        for b, c, o, k, h, t in SWEEP
+    ],
+)
+def test_route_sends_the_main_shapes_to_tensor_cores(x_shape, w_shape, dtype, want):
+    assert t_kernel.route(x_shape, w_shape, dtype) == want
+
+
+def _tc_coverage(x_shape, w_shape, p):
+    """How often the tensor-core kernel stores each output, as
+    csrc/conv3d_tc.cu maps blocks, warpgroups, column tiles and tile rows
+    (one tile row stores every channel)."""
+    B, _, H, W, T = x_shape
+    O, _, kh, kw, kt = w_shape
+    OH, OW, OT = H - kh + 1, W - kw + 1, T - kt + 1
+    cols = t_kernel.TC_NWG * t_kernel.TC_MT
+    nib, njb, nkb = -(-OH // p.bi), -(-OW // cols), -(-OT // p.bk)
+    assert B * nib * njb * nkb == p.blocks
+    bid, tile, row = np.meshgrid(
+        np.arange(p.blocks), np.arange(cols), np.arange(t_kernel.TC_ROWS), indexing="ij"
+    )
+    kb, rest = bid % nkb, bid // nkb
+    jb, rest = rest % njb, rest // njb
+    ib, b = rest % nib, rest // nib
+    i = ib * p.bi + row // p.bk
+    j = jb * cols + tile
+    k = kb * p.bk + row % p.bk
+    live = (row < p.bi * p.bk) & (i < OH) & (j < OW) & (k < OT)
+    count = np.zeros((B, OH, OW, OT), np.int64)
+    np.add.at(count, (b[live], i[live], j[live], k[live]), 1)
+    return count
+
+
+@pytest.mark.parametrize(
+    "x_shape,w_shape",
+    [
+        BATCH,
+        STREAMS,
+        ((1, 1, 60, 80, 16), (9, 1, 30, 40, 8)),
+        ((2, 2, 12, 20, 13), (9, 2, 3, 4, 8)),  # C 2, ragged T (not a multiple of 4)
+        ((1, 1, 5, 18, 30), (5, 1, 2, 3, 8)),  # O 5, two output rows per tile
+        ((1, 3, 40, 50, 70), (7, 3, 5, 9, 8)),  # OT 63: one frame run per tile
+    ],
+)
+def test_tc_plan_covers_every_output_once_within_limits(x_shape, w_shape):
+    p = t_kernel.tc_plan(x_shape, w_shape)
+    assert 1 <= p.bi * p.bk <= t_kernel.TC_ROWS
+    assert p.threads == t_kernel.TC_THREADS <= 1024
+    assert p.smem <= t_kernel.MAX_SMEM
+    assert p.blocks < 2**31
+    assert (_tc_coverage(x_shape, w_shape, p) == 1).all()
+    B, C, H, W, T = x_shape
+    assert p.workspace_floats == 2 * B * C * H * W * (-(-T // 4) * 4) + C * int(
+        np.prod(w_shape[2:4])
+    ) * t_kernel.TC_STEP_FLOATS
+
+
+def test_tc_plan_fills_the_card_at_the_main_shapes():
+    """The batch: 7 output rows x 9 frames per tile (63 of 64 rows), 240
+    blocks of one per SM; the streams: 64-frame runs, 2976 blocks."""
+    pb, ps = t_kernel.tc_plan(*BATCH), t_kernel.tc_plan(*STREAMS)
+    assert (pb.bi, pb.bk, pb.blocks) == (7, 9, 240)
+    assert (ps.bi, ps.bk, ps.blocks) == (1, 64, 2976)
+    assert min(pb.blocks, ps.blocks) >= t_kernel.SMS
+    # two stages fit one block, not two, per SM
+    assert t_kernel.MAX_SMEM // 2 < max(pb.smem, ps.smem) <= t_kernel.MAX_SMEM
+
+
+def test_tc_plan_refuses_what_route_sends_elsewhere():
+    with pytest.raises(ValueError, match="tensor-core"):
+        t_kernel.tc_plan((1, 1, 60, 80, 16), (9, 1, 30, 40, 3))
+    with pytest.raises(ValueError, match="tensor-core"):
+        t_kernel.tc_plan((1, 1, 60, 80, 16), (10, 1, 30, 40, 8))
