@@ -37,7 +37,32 @@ Phases, each reported on lines of its own:
              4096 and 8192 frames: its peak device memory may grow by
              less than a quarter of the shorter stream's bytes, and its
              detections must equal the unbounded server's bitwise.
-3. kernels — run every kernel at the shapes the serving batch gives it
+3. sched   — the same four tenants behind ``MicrobatchScheduler``
+             (max_queue 64, max_batch 6, batch_wait_s 0.005), gratings,
+             cuFFT batch sizes and both rungs warmed in the main thread
+             first.  Open-loop load: 96 single-stream 1024-frame requests
+             per rate, seeded Poisson arrivals at 0.5x and 0.9x of the
+             pooled rung's frames/s from the serve phase, tenants
+             uniform, every third request repeating the previous clip,
+             submitted by six client threads; printed: p50/p90/p99
+             submit->result latency, delivered frames/s, mean batch,
+             dedup groups, rejected, submit ms, lag behind the schedule
+             and the phase's B1/B2/B3 launches.  Checks: every future
+             resolves with a result, 0 rejected and 0 failed at 0.5x,
+             each result within 1e-5 (max relative) of the request
+             served alone (peak frames equal unless the alone run's
+             volume ties at the scheduled frame), B1 silent while the
+             pooled breaker never tripped.  Chaos storm (the reference's
+             benchmarks/chaos.py rules, a churning tenant, 32 x 256
+             frames, every 8th clip NaN): every future resolves, exactly
+             the poisoned ones quarantined, the rest results within
+             1e-5 of a fault-free alone run or typed ServingErrors, an
+             expired deadline typed, nothing pending after close().
+             Breaker: a pooled dispatch fault at rate 1 trips the pooled
+             breaker; the next batch runs on the sequential rung (B1
+             launching, B2 not) within 1e-5 of the pooled answers; with
+             the fault removed the ladder is back on pooled.
+4. kernels — run every kernel at the shapes the serving batch gives it
              and hold it against its plain torch version on the card:
              B1 v2/v1 bitwise, also at an odd F, at C = 3 (the kernel
              for C > 1) and with 20 kernels (O in chunks that do not fill
@@ -50,7 +75,7 @@ Phases, each reported on lines of its own:
              CUDA events beside its plain version, a one-call library
              yardstick and its bound (bytes at 3.35 TB/s or float32
              operations at 67 TFLOP/s, whichever is larger).
-4. lm      — mamba2-370m at its published config (48 layers, bf16,
+5. lm      — mamba2-370m at its published config (48 layers, bf16,
              random weights from a seeded generator on the card) served
              by ``LMServer.generate``: 4 prompts x 2048 tokens then 32
              greedy tokens, and 2 x 1000 (padded to 1024 inside the SSD)
@@ -68,7 +93,7 @@ Phases, each reported on lines of its own:
              to the same limit on that config; a 2-layer float32 model
              at full width must give the same last logits by the kernel
              route and the plain route (relative L2 <= 1e-4).
-5. lm_dense — qwen2-1.5b at its published config (28 layers, d_model
+6. lm_dense — qwen2-1.5b at its published config (28 layers, d_model
              1536, 12 query and 2 kv heads of 128, bf16, random weights
              from a seeded generator on the card) served by
              ``LMServer.generate`` with a KV cache of prompt + new tokens,
@@ -96,7 +121,7 @@ Phases, each reported on lines of its own:
              (each product's float32 output within 1e-5, the bf16 output
              within 1e-2), no cache-sized float32 copy, and decode
              ms/token of ``generate`` on each route, in turns.
-6. classify — the paper's hybrid 3-D CNN at its full geometry (60x80x16
+7. classify — the paper's hybrid 3-D CNN at its full geometry (60x80x16
              clips, 9 kernels of 30x40x8, pool (8, 8, 3), hidden 128, 4
              classes; random weights from a seeded generator on the card)
              on the 144-clip synthetic-KTH test split in batches of 16:
@@ -141,7 +166,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -192,6 +219,18 @@ MEM_STREAM_FRAMES = (4096, 8192)  # a cursor stream, then one twice as long
 SERVE_REPS = 7  # timed calls per serving mode, after one warm-up
 LM_REPS = 5  # timed calls per LM batch and kind, after one warm-up
 LM_BATCHES = ((4, 2048, 32), (2, 1000, 8))  # (prompts, prompt tokens, new tokens)
+# the scheduler phase: open-loop rates as fractions of the pooled rung's
+# frames/s, requests per rate (one 1024-frame stream each) and the client
+# threads submitting them; results held against alone runs (max relative)
+SCHED_RATES = (0.5, 0.9)
+SCHED_REQUESTS = 96
+SCHED_FRAMES = 1024
+SCHED_CLIENTS = 6
+SCHED_RTOL = 1e-5
+SCHED_RESULT_TIMEOUT_S = 180
+STORM_REQUESTS, STORM_FRAMES, STORM_SEED = 32, 256, 100
+POISON_EVERY = 8  # every 8th storm clip carries NaNs
+BREAKER_RECOVERY_S = 0.15
 CONV_RTOL, CONV_BF16_RTOL = 1e-5, 1e-2  # B4 vs its plain version, relative L2
 STREAM_RTOL = 2e-4  # streamed digital vs ideal STHC conv (the reference test's bound)
 TIE = 1e-4  # top-two logits this close (relative to their scale) may break either way
@@ -674,6 +713,16 @@ def _device_time(prof, wall_ms: float, calls: int) -> dict:
     }
 
 
+def _tenants(rng):
+    """The four paper-geometry tenants: two ideal, one physical, one
+    SLM-quantized, each 9 kernels of 30x40x8."""
+    from repro_torch.core import fidelity as fid
+
+    ks = [rng.randn(9, 1, 30, 40, 8).astype(np.float32) for _ in range(4)]
+    pipes = (fid.ideal(), fid.ideal(), fid.physical(), fid.pipeline(fid.SLMQuantize()))
+    return [(name, k, pipe) for name, k, pipe in zip("ABCD", ks, pipes)]
+
+
 def _requests(rng):
     clips = [rng.rand(1, 1, 60, 80, 1024).astype(np.float32) for _ in range(5)]
     # request 2 shares request 1's clip (clip-dedup); C and D stack two
@@ -729,28 +778,27 @@ def _mode_report(name, lat, frames, delta, extra="") -> dict:
     return {"latency_s": lat, "median_s": med, "frames_per_s": frames / med, "launches": delta}
 
 
+def _launch_counts(kernel) -> dict:
+    """B1's, B2's and B3's launch counters, by kernel name."""
+    fns = (kernel.spectral_mac_cuda, kernel.spectral_mac_grouped_cuda, kernel.topk_readout_cuda)
+    return {f.__name__.removesuffix("_cuda"): f.launches for f in fns}
+
+
+def _max_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
 def phase_serve(kernel, seed: int) -> dict:
-    from repro_torch.core import fidelity as fid
     from repro_torch.core import spectral_conv
     from repro_torch.core.engine import clip_keys_for
 
     rng = np.random.RandomState(seed)
-    ks = [rng.randn(9, 1, 30, 40, 8).astype(np.float32) for _ in range(4)]
-    tenants = [
-        ("A", ks[0], fid.ideal()),
-        ("B", ks[1], fid.ideal()),
-        ("C", ks[2], fid.physical()),
-        ("D", ks[3], fid.pipeline(fid.SLMQuantize())),
-    ]
+    tenants = _tenants(rng)
+    ks = [k for _, k, _ in tenants]
     reqs = _requests(rng)
     frames = sum(c.shape[0] * c.shape[-1] for _, c in reqs)
     server = _server(tenants)
     report = {"modes": {}}
-    fns = (kernel.spectral_mac_cuda, kernel.spectral_mac_grouped_cuda, kernel.topk_readout_cuda)
-
-    def counts():
-        return {f.__name__.removesuffix("_cuda"): f.launches for f in fns}
-
     kernel.reset_launches()
     modes = [
         ("pooled", server, {}, ("spectral_mac_grouped", "topk_readout")),
@@ -759,9 +807,9 @@ def phase_serve(kernel, seed: int) -> dict:
     ]
     outs = {}
     for name, srv, kw, need in modes:
-        before = counts()
+        before = _launch_counts(kernel)
         outs[name], lat = _run(srv, reqs, **kw)
-        after = counts()
+        after = _launch_counts(kernel)
         delta = {k: after[k] - before[k] for k in after}
         for k in need:
             if delta[k] <= 0:
@@ -776,8 +824,7 @@ def phase_serve(kernel, seed: int) -> dict:
         if not (torch.equal(torch.amax(vol, -1).cpu(), torch.from_numpy(b["scores"]))):
             raise AssertionError("stitched scores are not the volume's amax")
     pooled_vs_seq = max(
-        float(np.max(np.abs(a["scores"] - b["scores"]) / np.abs(b["scores"])))
-        for a, b in zip(outs["pooled"], outs["sequential"])
+        _max_rel(a["scores"], b["scores"]) for a, b in zip(outs["pooled"], outs["sequential"])
     )
     if pooled_vs_seq > 1e-5:
         raise AssertionError(f"pooled vs sequential scores differ by {pooled_vs_seq:.3g}")
@@ -803,16 +850,15 @@ def phase_serve(kernel, seed: int) -> dict:
             print(f"profile:   {ms:9.3f} ms  {kname}")
 
     bf16 = _server(tenants, grating_dtype="bfloat16")
-    before = counts()
+    before = _launch_counts(kernel)
     out_bf, lat = _run(bf16, reqs)
-    after = counts()
+    after = _launch_counts(kernel)
     delta = {k: after[k] - before[k] for k in after}
     for k in ("spectral_mac_grouped", "topk_readout"):
         if delta[k] <= 0:
             raise AssertionError(f"bf16 pooled: kernel {k} was not launched")
     bf_rel = max(
-        float(np.max(np.abs(a["scores"] - b["scores"]) / np.abs(b["scores"])))
-        for a, b in zip(out_bf, outs["pooled"])
+        _max_rel(a["scores"], b["scores"]) for a, b in zip(out_bf, outs["pooled"])
     )
     if bf_rel > 2e-2:
         raise AssertionError(f"bf16 scores off the f32 ones by {bf_rel:.3g}")
@@ -820,7 +866,7 @@ def phase_serve(kernel, seed: int) -> dict:
         "pooled_bf16", lat, frames, delta, f"  max rel vs f32 {bf_rel:.3g}"
     )
     report["modes"]["pooled_bf16"]["max_rel_vs_f32"] = bf_rel
-    report["launches"] = counts()
+    report["launches"] = _launch_counts(kernel)
 
     # correctness against direct correlation on a short clip (ideal tenant)
     short = rng.rand(1, 1, 60, 80, 128).astype(np.float32)
@@ -876,6 +922,345 @@ def _cursor_memory(tenants, unbounded, rng) -> dict:
     if not grew < limit:
         raise AssertionError(f"cursor peak memory grew by {grew} bytes (limit {limit:.0f})")
     return {"peak_bytes": peaks, "growth_bytes": grew, "limit_bytes": limit}
+
+
+def _check_alone(server, req, out, what: str) -> float:
+    """Hold a scheduled result against the same request served alone by
+    ``search_batch([req])``: scores within ``SCHED_RTOL`` (max relative);
+    peak frames equal except where the alone run's volume holds, at the
+    scheduled frame, a score within ``SCHED_RTOL`` of its peak (a tie).
+    Returns the max relative score error."""
+    (alone,) = server.search_batch([req])
+    if not isinstance(alone, dict):
+        raise AssertionError(f"{what}: the alone run failed: {alone!r}")
+    rel = _max_rel(out["scores"], alone["scores"])
+    if not rel <= SCHED_RTOL:
+        raise AssertionError(f"{what}: scores off the alone run by {rel:.3g}")
+    diff = np.argwhere(out["peak_frame"] != alone["peak_frame"])
+    if len(diff):
+        (vol,) = server.search_batch([req], return_volume=True)
+        v = vol["volume"]
+        for b, o in diff:
+            at = float(v[b, o, ..., int(out["peak_frame"][b, o])].max())
+            if not at >= float(alone["scores"][b, o]) * (1 - SCHED_RTOL):
+                raise AssertionError(f"{what}: peak frame differs without a tie at ({b}, {o})")
+    return rel
+
+
+def _open_loop(sched, reqs, due, clients: int) -> dict:
+    """Submit ``reqs[i]`` at ``due[i]`` seconds from the start, from a pool
+    of ``clients`` threads (each submit hashes its clip), then wait for
+    every future.  Returns per-request lag (actual minus scheduled submit
+    start), submit-call ms, the outputs (None when shed) and the wall time
+    from the first submit to the last result."""
+    from repro_torch.launch.resilience import RequestRejected
+
+    n = len(reqs)
+    lag, submit_ms, futs = [None] * n, [None] * n, [None] * n
+    t0 = time.perf_counter()
+
+    def client(i):
+        start = time.perf_counter()
+        lag[i] = start - (t0 + due[i])
+        try:
+            futs[i] = sched.submit(*reqs[i])
+        except RequestRejected:
+            return
+        submit_ms[i] = (time.perf_counter() - start) * 1e3
+
+    with ThreadPoolExecutor(clients) as pool:
+        jobs = []
+        for i in range(n):
+            wait = t0 + due[i] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            jobs.append(pool.submit(client, i))
+        for j in jobs:
+            j.result()
+    first = t0 + due[0] + lag[0]
+    outs = [None if f is None else f.result(timeout=SCHED_RESULT_TIMEOUT_S) for f in futs]
+    return {
+        "wall_s": time.perf_counter() - first,
+        "lag_s": lag,
+        "submit_ms": [x for x in submit_ms if x is not None],
+        "outs": outs,
+    }
+
+
+def _sched_rate(server, kernel, frac: float, pooled_fps: float, seed: int) -> dict:
+    """Open-loop load at ``frac`` of the pooled rung's frames/s: seeded
+    Poisson arrivals of ``SCHED_REQUESTS`` 1024-frame single-stream
+    requests, tenants uniform, every third request repeating the previous
+    one's clip."""
+    from repro_torch.launch.serve import MicrobatchScheduler
+
+    gen = np.random.default_rng([seed, int(frac * 100)])
+    rate = frac * pooled_fps / SCHED_FRAMES  # requests per second
+    due = np.cumsum(gen.exponential(1.0 / rate, SCHED_REQUESTS))
+    due -= due[0]
+    reqs = []
+    for i in range(SCHED_REQUESTS):
+        tenant = "ABCD"[int(gen.integers(4))]
+        if i % 3 == 2:
+            clip = reqs[-1][1]
+        else:
+            clip = gen.random((1, 1, 60, 80, SCHED_FRAMES), dtype=np.float32)
+        reqs.append((tenant, clip))
+    kernel.reset_launches()
+    with MicrobatchScheduler(server, max_queue=64, max_batch=6, batch_wait_s=0.005) as sched:
+        run = _open_loop(sched, reqs, due, SCHED_CLIENTS)
+        m = sched.metrics()
+    launches = _launch_counts(kernel)
+    outs = run["outs"]
+    for i, out in enumerate(outs):
+        if out is not None and not (isinstance(out, dict) and np.isfinite(out["scores"]).all()):
+            raise AssertionError(f"sched {frac}x: request {i} resolved badly: {out!r}")
+    served = [i for i, o in enumerate(outs) if o is not None]
+    if m["completed"] != len(served) or m["failed"] != 0:
+        raise AssertionError(f"sched {frac}x: completed {m['completed']}, failed {m['failed']}, "
+                             f"results {len(served)}")
+    if frac <= 0.5 and (m["rejected"] or m["failed"]):
+        raise AssertionError(f"sched {frac}x: {m['rejected']} rejected, {m['failed']} failed")
+    for k in ("spectral_mac_grouped", "topk_readout"):
+        if launches[k] <= 0:
+            raise AssertionError(f"sched {frac}x: kernel {k} was not launched")
+    if m["ladder"]["breakers"]["pooled"]["trips"] == 0 and launches["spectral_mac"] != 0:
+        raise AssertionError(f"sched {frac}x: B1 launched {launches['spectral_mac']} times "
+                             "on the pooled rung")
+    lag = np.asarray(run["lag_s"]) * 1e3
+    fps = len(served) * SCHED_FRAMES / run["wall_s"]
+    rel = max(_check_alone(server, reqs[i], outs[i], f"sched {frac}x request {i}") for i in served)
+    row = {
+        "rate_frac": frac,
+        "rate_rps": rate,
+        "requests": SCHED_REQUESTS,
+        "served": len(served),
+        "latency_p50_ms": m["latency_p50_ms"],
+        "latency_p90_ms": m["latency_p90_ms"],
+        "latency_p99_ms": m["latency_p99_ms"],
+        "frames_per_s": fps,
+        "wall_s": run["wall_s"],
+        "mean_batch_size": m["mean_batch_size"],
+        "batches": m["batches"],
+        "dedup_grouped": m["dedup_grouped"],
+        "rejected": m["rejected"],
+        "failed": m["failed"],
+        "submit_ms_median": float(np.median(run["submit_ms"])),
+        "lag_ms_median": float(np.median(lag)),
+        "lag_ms_max": float(lag.max()),
+        "launches": launches,
+        "max_rel_vs_alone": rel,
+    }
+    print(
+        f"sched: {frac}x pooled rate ({rate:.2f} req/s, {SCHED_REQUESTS} x {SCHED_FRAMES} frames, "
+        f"{SCHED_CLIENTS} clients): latency p50 {row['latency_p50_ms']:.2f} p90 "
+        f"{row['latency_p90_ms']:.2f} p99 {row['latency_p99_ms']:.2f} ms, delivered "
+        f"{fps:.1f} frames/s, mean batch {row['mean_batch_size']:.2f} ({row['batches']} batches), "
+        f"dedup_grouped {row['dedup_grouped']}, rejected {row['rejected']}, failed {row['failed']}"
+    )
+    print(
+        f"sched: {frac}x submit (SHA-1 + enqueue) median {row['submit_ms_median']:.2f} ms, "
+        f"lag behind schedule median {row['lag_ms_median']:.2f} ms max {row['lag_ms_max']:.2f} ms; "
+        f"launches {launches}; scores vs alone max rel {rel:.3g}"
+    )
+    return row
+
+
+def _storm(tenants, kernel) -> dict:
+    """The reference's chaos storm on the port: stochastic dispatch faults,
+    cache-fetch latency and forced evictions, encode latency and a tenant
+    churning beside the traffic; every 8th clip NaN-poisoned."""
+    from repro_torch.core import fidelity as fid
+    from repro_torch.distributed.fault import ChaosInjector, ChaosRule
+    from repro_torch.launch.resilience import (
+        DeadlineExceeded, DegradationLadder, RetryPolicy, ServingError, TenantQuarantined,
+    )
+    from repro_torch.launch.serve import MicrobatchScheduler
+
+    server = _server(tenants, verify_gratings=True)
+    gen = np.random.default_rng(STORM_SEED)
+    reqs = []
+    for i in range(STORM_REQUESTS):
+        clip = gen.random((1, 1, 60, 80, STORM_FRAMES), dtype=np.float32)
+        if i % POISON_EVERY == POISON_EVERY - 1:
+            clip[0, 0, 0, 0, :] = np.nan
+        reqs.append(("ABCD"[i % 4], clip))
+    _warm(server, reqs[:4], rows=4)
+
+    def evict_one():
+        with server.cache._lock:
+            keys = list(server.cache._entries)
+        if keys:
+            server.cache.discard(keys[0])
+
+    chaos = ChaosInjector(
+        [
+            ChaosRule("dispatch", "raise", rate=0.12),
+            ChaosRule("cache_fetch", "latency", rate=0.15, delay_s=0.002),
+            ChaosRule("cache_fetch", "call", rate=0.08, action=evict_one),
+            ChaosRule("encode", "latency", rate=0.10, delay_s=0.001),
+        ],
+        seed=0,
+    )
+    stop = threading.Event()
+    churn_k = np.random.RandomState(99).randn(9, 1, 30, 40, 8).astype(np.float32)
+
+    def churn():
+        while not stop.is_set():
+            server.add_tenant("churn", churn_k, fidelity=fid.physical())
+            time.sleep(0.002)
+            server.remove_tenant("churn")
+            time.sleep(0.002)
+
+    churner = ThreadPoolExecutor(1)
+    kernel.reset_launches()
+    server.chaos = chaos
+    t0 = time.perf_counter()
+    with MicrobatchScheduler(
+        server, max_queue=2 * STORM_REQUESTS, max_batch=4, batch_wait_s=0.001,
+        default_deadline_s=120.0,
+        retry=RetryPolicy(max_retries=6, base_s=0.001, cap_s=0.01, seed=0),
+        ladder=DegradationLadder(failure_threshold=3, recovery_s=0.05),
+    ) as sched:
+        churn_job = churner.submit(churn)
+        futs = [sched.submit(t, c, block=True) for t, c in reqs]
+        kinds, outs = [], []
+        for f in futs:
+            exc = f.exception(timeout=SCHED_RESULT_TIMEOUT_S)
+            if exc is None:
+                kinds.append("ok")
+                outs.append(f.result())
+            else:
+                kinds.append("quarantined" if isinstance(exc, TenantQuarantined)
+                             else "typed" if isinstance(exc, ServingError) else f"untyped {exc!r}")
+                outs.append(None)
+        elapsed = time.perf_counter() - t0
+        probe = sched.submit("A", reqs[0][1], block=True, deadline_s=0.0)
+        deadline_typed = isinstance(probe.exception(timeout=60), DeadlineExceeded)
+        m = sched.metrics()
+    stop.set()
+    churn_job.result(timeout=60)
+    churner.shutdown()
+    server.chaos = None
+    launches = _launch_counts(kernel)
+    pending = [i for i, f in enumerate(futs + [probe]) if not f.done()]
+    if pending or m["queue_depth"]:
+        raise AssertionError(f"storm: pending after close: {pending}, queue {m['queue_depth']}")
+    poisoned = [i for i in range(STORM_REQUESTS) if i % POISON_EVERY == POISON_EVERY - 1]
+    quarantined = [i for i, k in enumerate(kinds) if k == "quarantined"]
+    if quarantined != poisoned:
+        raise AssertionError(f"storm: quarantined {quarantined}, poisoned {poisoned}")
+    bad = [k for k in kinds if k.startswith("untyped")]
+    if bad:
+        raise AssertionError(f"storm: untyped failures {bad}")
+    if not deadline_typed:
+        raise AssertionError("storm: an expired deadline did not raise DeadlineExceeded")
+    rel = max([_check_alone(server, reqs[i], outs[i], f"storm request {i}")
+               for i, k in enumerate(kinds) if k == "ok"], default=0.0)
+    counts = {k: kinds.count(k) for k in ("ok", "quarantined", "typed")}
+    row = {
+        "requests": STORM_REQUESTS,
+        "frames": STORM_FRAMES,
+        **counts,
+        "resolved": sum(f.done() for f in futs),
+        "retries": m["retries"],
+        "faults_injected": chaos.stats()["total_injected"],
+        "injected": chaos.stats()["injected"],
+        "latency_p99_ms": m["latency_p99_ms"],
+        "elapsed_s": elapsed,
+        "ladder": m["ladder"],
+        "integrity_failures": server.cache.stats()["integrity_failures"],
+        "launches": launches,
+        "max_rel_vs_alone": rel,
+    }
+    print(
+        f"sched: storm {STORM_REQUESTS} x {STORM_FRAMES} frames: {counts['ok']} results, "
+        f"{counts['quarantined']} quarantined (the poisoned {len(poisoned)}), {counts['typed']} "
+        f"typed ServingError, 0 pending after close; {m['retries']} retries, "
+        f"{row['faults_injected']} faults injected {row['injected']}, pooled trips "
+        f"{m['ladder']['breakers']['pooled']['trips']}, p99 {m['latency_p99_ms']:.2f} ms, "
+        f"{elapsed:.2f} s; launches {launches}; results vs fault-free alone max rel {rel:.3g}"
+    )
+    return row
+
+
+def _breaker(server, kernel, seed: int) -> dict:
+    """A pooled-only dispatch fault at rate 1 trips the pooled breaker: the
+    next batches run on the sequential rung (B1), answering as the pooled
+    rung did; with the fault removed the ladder recovers to pooled."""
+    from repro_torch.distributed.fault import ChaosInjector, ChaosRule
+    from repro_torch.launch.resilience import DegradationLadder, RetryPolicy
+    from repro_torch.launch.serve import MicrobatchScheduler
+
+    gen = np.random.default_rng([seed, 7])
+    reqs = [(t, gen.random((1, 1, 60, 80, SCHED_FRAMES), dtype=np.float32)) for t in "ABCD"]
+    pooled = server.search_batch(reqs)
+    chaos = ChaosInjector([ChaosRule("dispatch", "raise", rate=1.0, mode="pooled")], seed=1)
+    ladder = DegradationLadder(failure_threshold=2, recovery_s=BREAKER_RECOVERY_S)
+    server.chaos = chaos
+    with MicrobatchScheduler(
+        server, max_batch=4, batch_wait_s=0.05,
+        retry=RetryPolicy(max_retries=1, base_s=1e-4, cap_s=1e-3, seed=0), ladder=ladder,
+    ) as sched:
+        for _ in range(10):  # trip the breaker
+            sched.submit(*reqs[0], block=True).result(timeout=SCHED_RESULT_TIMEOUT_S)
+            if ladder.breakers["pooled"].state == "open":
+                break
+        if ladder.peek() != "sequential":
+            raise AssertionError(f"breaker: ladder on {ladder.peek()!r}, not 'sequential'")
+        kernel.reset_launches()
+        futs = [sched.submit(t, c, block=True) for t, c in reqs]
+        degraded = [f.result(timeout=SCHED_RESULT_TIMEOUT_S) for f in futs]
+        launches = _launch_counts(kernel)
+        if launches["spectral_mac"] <= 0 or launches["spectral_mac_grouped"] != 0:
+            raise AssertionError(f"breaker: degraded batches launched {launches}")
+        rel = max(_max_rel(d["scores"], p["scores"]) for d, p in zip(degraded, pooled))
+        if not rel <= SCHED_RTOL:
+            raise AssertionError(f"breaker: sequential rung off the pooled one by {rel:.3g}")
+        chaos.rules.clear()
+        time.sleep(BREAKER_RECOVERY_S + 0.05)
+        for _ in range(20):
+            sched.submit(*reqs[1], block=True).result(timeout=SCHED_RESULT_TIMEOUT_S)
+            if ladder.breakers["pooled"].state == "closed":
+                break
+            time.sleep(0.05)
+        m = sched.metrics()
+    server.chaos = None
+    snap = m["ladder"]["breakers"]["pooled"]
+    if m["mode"] != "pooled" or snap["recoveries"] < 1:
+        raise AssertionError(f"breaker: did not recover to pooled: {m['ladder']}")
+    print(f"sched: breaker tripped to 'sequential' (degraded batch launches {launches}, scores vs "
+          f"pooled max rel {rel:.3g}), recovered to {m['mode']!r}; ladder {m['ladder']}")
+    return {"degraded_launches": launches, "max_rel_vs_pooled": rel, "ladder": m["ladder"]}
+
+
+def _warm(server, reqs, rows: int) -> None:
+    """Record and plan in the caller's thread: pooled and sequential calls
+    with 1..rows distinct clips (every cuFFT batch size the phase forms)."""
+    for n in range(1, rows + 1):
+        # distinct contents, so clip-dedup keeps every row
+        batch = [(reqs[i % len(reqs)][0], reqs[i % len(reqs)][1] + np.float32(i)) for i in range(n)]
+        server.search_batch(batch)
+        server.search_batch(batch, pooled=False)
+    torch.cuda.synchronize()
+
+
+def phase_sched(kernel, seed: int, pooled_fps: float) -> dict:
+    """The microbatch scheduler on the paper-geometry server: open-loop
+    load at two fractions of the pooled rung's rate, a chaos storm and a
+    breaker trip and recovery."""
+    t0 = time.perf_counter()
+    tenants = _tenants(np.random.RandomState(seed))
+    server = _server(tenants)
+    gen = np.random.default_rng([seed, 1])
+    warm = [(t, gen.random((1, 1, 60, 80, SCHED_FRAMES), dtype=np.float32)) for t in "ABCD"]
+    _warm(server, warm, rows=6)
+    report = {"rates": [_sched_rate(server, kernel, f, pooled_fps, seed) for f in SCHED_RATES]}
+    report["storm"] = _storm(tenants, kernel)
+    report["breaker"] = _breaker(server, kernel, seed)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"sched: phase {report['seconds']:.1f} s")
+    return report
 
 
 def _ssd_cost(Bb, L, H, G, P, N, Q) -> tuple[float, float]:
@@ -1660,6 +2045,7 @@ def main() -> int:
     report["build"]["conv3d_sass"] = check_conv3d_build(
         report["build"]["conv3d"]["path"], report["build"]["conv3d"]["warnings"])
     report["serve"] = phase_serve(kernel, args.seed)
+    report["sched"] = phase_sched(kernel, args.seed, report["serve"]["modes"]["pooled"]["frames_per_s"])
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
     report["lm"], ssd_rows = phase_lm(args.seed)
     rows += ssd_rows

@@ -39,6 +39,7 @@ import dataclasses
 import hashlib
 import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
@@ -299,24 +300,35 @@ def _build_pool(members: list[FusedGrating]) -> GratingPool:
 def clip_key(x) -> tuple:
     """Content fingerprint of a clip batch (SHA-1 of the full bytes +
     shape + dtype): two requests whose clips hash equal are the same
-    stream, answered from one physical row."""
+    stream, answered from one physical row.  The whole buffer is
+    digested, never a sample: a false "same clip" would answer one
+    tenant with another's stream.  A C-contiguous numpy array is hashed
+    in place; a tensor costs one copy to the host (a device→host copy
+    for a CUDA clip)."""
     if isinstance(x, Tensor):
         arr = x.detach().cpu().contiguous().numpy()
     else:
         arr = np.ascontiguousarray(x)
-    return (hashlib.sha1(arr.tobytes()).hexdigest(), tuple(arr.shape), str(arr.dtype))
+    return (hashlib.sha1(arr).hexdigest(), tuple(arr.shape), str(arr.dtype))
+
+
+_HASH_WORKERS = 8  # threads digesting distinct clips in one call
 
 
 def clip_keys_for(arrays) -> list:
-    """Per-array clip identities, hashed once per distinct object."""
-    memo: dict[int, tuple] = {}
-    keys = []
-    for x in arrays:
-        k = memo.get(id(x))
-        if k is None:
-            k = memo[id(x)] = clip_key(x)
-        keys.append(k)
-    return keys
+    """Per-array clip identities, hashed once per distinct object.  More
+    than one distinct clip is digested on a small thread pool
+    (``hashlib`` releases the GIL while it digests a large buffer); the
+    keys are bitwise the serial ones."""
+    arrays = list(arrays)
+    distinct = list({id(x): x for x in arrays}.values())
+    if len(distinct) > 1:
+        with ThreadPoolExecutor(min(len(distinct), _HASH_WORKERS)) as pool:
+            keys = list(pool.map(clip_key, distinct))
+    else:
+        keys = [clip_key(x) for x in distinct]
+    memo = {id(x): k for x, k in zip(distinct, keys)}
+    return [memo[id(x)] for x in arrays]
 
 
 def _stream_scale(x: Tensor) -> Tensor:

@@ -24,8 +24,19 @@ query.  ``search_batch`` serves a mixed-tenant batch of long streams:
 rest of the batch delivers; ``verify_gratings`` checksums every cache
 fetch.  ``metrics()`` reports cache counters, dispatch and dedup
 counters, and measured windows/s and frames/s against the paper's
-projected loader rates.  The microbatch scheduler, the chaos seams and
-mesh serving come in later slices.
+projected loader rates.  ``server.chaos`` takes a
+:class:`~repro_torch.distributed.fault.ChaosInjector`, whose seams
+(``cache_fetch``, ``encode``, ``dispatch``, ``readout``) fire where the
+reference's do; with no injector each seam is one attribute check.
+
+:class:`MicrobatchScheduler` fronts the server as the reference's does
+(queue → batcher → pooled executor): ``submit`` hashes the clip in the
+caller's thread and returns a future, a batcher thread forms
+mixed-tenant microbatches with same-clip requests side by side (dedup
+groups), and each batch runs on the highest rung of the degradation
+ladder (pooled → sequential → single) whose breaker admits it, under
+deadlines, seeded retries and a watchdog that resolves every future.
+Mesh serving comes in a later slice.
 
 :class:`HybridClassifierServer` serves the paper's hybrid 3-D CNN (§4):
 the conv layer is an STHC whose grating is recorded once, at
@@ -48,10 +59,13 @@ path).
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
+import queue as queue_mod
 import threading
 import time
 import warnings
+from concurrent.futures import Future
 from typing import Sequence
 
 import numpy as np
@@ -64,13 +78,28 @@ from repro_torch.core.engine import (
     TOPK_EMPTY_IDX,
     GratingCache,
     as_tensor,
+    clip_key,
     clip_keys_for,
     host_stream,
     stack_streams,
 )
 from repro_torch.core.fidelity import FidelityPipeline
 from repro_torch.core.sthc import STHC, STHCConfig
-from repro_torch.launch.resilience import ServingError, TenantQuarantined
+from repro_torch.launch.resilience import (
+    BatchExecutionError,
+    DeadlineExceeded,
+    DegradationLadder,
+    RequestRejected,
+    RetryPolicy,
+    SchedulerClosed,
+    ServingError,
+    TenantQuarantined,
+    Watchdog,
+    is_transient,
+    is_validation_error,
+    resolve_exception,
+    resolve_result,
+)
 from repro_torch.models import model_api
 
 
@@ -182,6 +211,9 @@ class VideoSearchServer:
             max_bytes=cfg.cache_bytes,
             verify=cfg.verify_gratings,
         )
+        # optional ChaosInjector (distributed.fault); when attached the
+        # hot path fires its seams — when None each seam is one attr check
+        self.chaos = None
         self._quarantined = 0  # guarded-by: _lock
         # one engine per (fidelity fingerprint, device model), all
         # sharing the one grating cache
@@ -360,6 +392,8 @@ class VideoSearchServer:
     def _fetch_grating(self, name: str, ten: _Tenant):
         """The one grating-fetch path: hit while resident, re-record on a
         miss; a fetch raced by removal drops its orphan entry."""
+        if self.chaos is not None:
+            self.chaos.on("cache_fetch")
         grating = self.cache.get_or_record(
             ten.sthc.engine,
             ten.kernels,
@@ -461,6 +495,8 @@ class VideoSearchServer:
             return dev(clips[0]) if len(clips) == 1 else torch.cat([dev(c) for c in clips])
 
         stacks = [stack(idxs, ten) for (_, idxs), ten in zip(order, tens)]
+        if self.chaos is not None:  # chaos seam: batch encode/stacking
+            self.chaos.on("encode", mode="pooled" if pooled else "sequential")
 
         if pooled:
             t0 = time.perf_counter()
@@ -478,6 +514,8 @@ class VideoSearchServer:
                         group_keys.append(ks[0])
                     else:
                         group_keys.append(("stack",) + tuple(ks))
+            if self.chaos is not None:  # chaos seam: pooled dispatch
+                self.chaos.on("dispatch", mode="pooled")
             engine = self.sthc.engine
             if fused:
                 fmaps = None
@@ -514,6 +552,8 @@ class VideoSearchServer:
             for (key, _), ten, clips in zip(order, tens, stacks):
                 t0 = time.perf_counter()
                 grating = self._fetch_grating(key[0], ten)
+                if self.chaos is not None:  # chaos seam: sequential path
+                    self.chaos.on("dispatch", mode="sequential")
                 if fused:
                     det = ten.sthc.engine.query_stream(grating, clips, readout_k=topk)
                     dets.append(det)
@@ -559,6 +599,10 @@ class VideoSearchServer:
                 tmod = int(fmaps[g_i].shape[-1])
                 peak = readouts[g_i][0]
                 idx = readouts[g_i][1]
+            if self.chaos is not None:  # chaos seam: detection readout
+                peak = self.chaos.on(
+                    "readout", mode="pooled" if pooled else "sequential", payload=peak
+                )
             t_idx = idx % tmod
             b = 0
             for i in idxs:
@@ -654,6 +698,520 @@ class VideoSearchServer:
             "frames_per_s_vs_slm": fps / throughput.SLM_FPS,
             "frames_per_s_vs_hmd": fps / throughput.HMD_FPS,
         }
+
+
+# ---------------------------------------------------------------------------
+# Async microbatch scheduling (queue → batcher → pooled executor)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)  # identity semantics: the clip field
+class _Pending:  # would make field-wise == ambiguous (array truthiness)
+    tenant: str
+    clip: object  # numpy array or tensor, (B, C, H, W, T)
+    future: Future
+    t_submit: float
+    # content fingerprint of the clip, hashed once in the submitter's
+    # thread (off the batcher's critical path) — the identity the
+    # shared-stream dedup groups ride on
+    clip_id: tuple | None = None
+    # absolute wall-clock deadline (time.time() frame); None = none
+    deadline: float | None = None
+
+
+class MicrobatchScheduler:
+    """Async microbatch front end for a :class:`VideoSearchServer` (port
+    of the reference's scheduler: same constructor, defaults, methods and
+    ``metrics()`` keys).
+
+    Callers ``submit()`` requests and get a
+    :class:`concurrent.futures.Future`; a scheduler thread drains the
+    bounded queue into mixed-tenant microbatches and dispatches each
+    through ``server.search_batch`` — where same-geometry tenants pool
+    into single device dispatches.
+
+    * **Admission control / backpressure** — the queue holds at most
+      ``max_queue`` requests.  ``submit(block=False)`` (default) sheds
+      immediately on a full queue (:class:`RequestRejected`, the
+      ``rejected`` counter); ``submit(block=True)`` blocks the caller
+      until a slot frees.
+    * **Batch forming** — the scheduler takes the first queued request,
+      then waits up to ``batch_wait_s`` for more, collecting up to
+      ``max_batch`` requests of the *same clip shape* (others are
+      stashed for the next cycle, arrival order kept within a shape).
+      Requests whose clips hash equal are placed side by side (dedup
+      groups) and counted in ``dedup_grouped``.
+    * **Observability** — per-request submit → result latency in a
+      sliding window; :meth:`metrics` reports p50/p90/p99, queue depth,
+      shed/submit/complete counters and the mean formed batch size.
+    * **Resilience** — deadlines (``default_deadline_s`` / per-request
+      ``deadline_s``) enforced at dispatch, across retries, and by a
+      watchdog thread that resolves any overdue future with
+      ``DeadlineExceeded``; transient dispatch failures retried under
+      the seeded ``RetryPolicy``; repeated failures trip the
+      ``DegradationLadder``'s breakers, degrading pooled → sequential →
+      single-request dispatch and recovering via half-open probes.  (The
+      ``pooled`` rung honors the server's ``cfg.pooled_queries``.)
+      Every future resolves with a result or a typed ``ServingError``;
+      queued futures are resolved with ``SchedulerClosed`` on shutdown.
+
+    The batcher thread launches on its own current CUDA stream — the
+    default stream, the same one the caller's thread uses unless it set
+    another — so its kernels and copies are ordered as any caller's.
+    Use as a context manager or call :meth:`close`.
+    """
+
+    def __init__(
+        self,
+        server: VideoSearchServer,
+        max_queue: int = 64,
+        max_batch: int = 8,
+        batch_wait_s: float = 0.002,
+        latency_window: int = 1024,
+        default_deadline_s: float | None = None,
+        retry: RetryPolicy | None = None,
+        ladder: DegradationLadder | None = None,
+        watchdog_interval_s: float = 0.02,
+    ):
+        if max_queue < 1 or max_batch < 1:
+            raise ValueError("max_queue and max_batch must be >= 1")
+        self.server = server
+        self.max_batch = int(max_batch)
+        self.batch_wait_s = float(batch_wait_s)
+        self.default_deadline_s = default_deadline_s
+        self.retry = retry if retry is not None else RetryPolicy()
+        self.ladder = ladder if ladder is not None else DegradationLadder()
+        self._q: queue_mod.Queue[_Pending] = queue_mod.Queue(maxsize=max_queue)
+        # batcher-thread only (and _drain_and_fail, which runs strictly
+        # after the batcher thread is dead) — deliberately unguarded
+        self._stash: collections.deque[_Pending] = collections.deque()
+        self._lock = threading.Lock()
+        self._latencies: collections.deque[float] = collections.deque(  # guarded-by: _lock
+            maxlen=latency_window
+        )
+        self._batch_sizes: collections.deque[int] = collections.deque(  # guarded-by: _lock
+            maxlen=latency_window
+        )
+        self.submitted = 0  # guarded-by: _lock
+        self.completed = 0  # guarded-by: _lock
+        self.rejected = 0  # guarded-by: _lock
+        self.failed = 0  # guarded-by: _lock
+        self.batches = 0  # guarded-by: _lock
+        # requests that joined an existing shared-stream dedup group
+        # (same-clip rows beyond the first in a formed batch)
+        self.dedup_grouped = 0  # guarded-by: _lock
+        self.deadline_missed = 0  # guarded-by: _lock
+        self.retries = 0  # guarded-by: _lock
+        self.quarantined = 0  # guarded-by: _lock
+        self._batch_seq = 0  # guarded-by: _lock
+        # serializes intake against close(): submit must never land a
+        # request after close() drained the queue (its future would hang
+        # forever).  Deliberately NOT self._lock — the batcher takes
+        # that inside _dispatch, and a submitter blocked on a full
+        # queue while holding it would deadlock the drain.
+        self._intake_lock = threading.Lock()
+        self._closed = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="sthc-microbatcher", daemon=True
+        )
+        self._thread.start()
+        # the no-hangs backstop: resolves overdue futures with
+        # DeadlineExceeded and fails everything if the batcher dies
+        self._watchdog = Watchdog(
+            interval_s=watchdog_interval_s,
+            on_expire=self._on_deadline_expired,
+            on_tick=self._check_liveness,
+        )
+
+    # -- intake ------------------------------------------------------------
+
+    def submit(
+        self,
+        tenant: str,
+        clip,
+        block: bool = False,
+        deadline_s: float | None = None,
+    ) -> Future:
+        """Enqueue one search; returns a future resolving to the same
+        result dict ``search_batch`` produces (plus ``queue_latency_s``,
+        the end-to-end submit→result time).
+
+        The clip's content fingerprint (the full SHA-1, ``clip_key``) is
+        hashed here, in the caller's thread, so the batcher forms dedup
+        groups without re-reading clip bytes: a numpy clip is hashed in
+        place, a CUDA tensor costs one device→host copy first.  Skipped
+        when the server's dedup (or its pooled path) is off.
+
+        ``deadline_s`` (default ``self.default_deadline_s``; None = no
+        deadline) bounds submit → result: past it the future resolves
+        with :class:`DeadlineExceeded` — enforced at dispatch, across
+        retries, and by the watchdog thread as the backstop."""
+        cfg = self.server.cfg
+        # the sequential executor never reads clip keys either
+        wants_dedup = cfg.dedup_clips and cfg.pooled_queries
+        cid = clip_key(clip) if wants_dedup else None
+        now = time.time()
+        if deadline_s is None:
+            deadline_s = self.default_deadline_s
+        deadline = now + deadline_s if deadline_s is not None else None
+        item = _Pending(tenant, clip, Future(), now, cid, deadline)
+        # every put happens under the intake lock (so close() can never
+        # miss a request and leave its future hanging), but the lock is
+        # never held across a blocking wait: a backpressured submitter
+        # polls for a slot between acquisitions
+        while True:
+            with self._intake_lock:
+                if self._closed.is_set():
+                    raise SchedulerClosed("scheduler is closed")
+                try:
+                    self._q.put_nowait(item)
+                    break
+                except queue_mod.Full:
+                    if not block:
+                        with self._lock:
+                            self.rejected += 1
+                        raise RequestRejected(
+                            f"request queue full ({self._q.maxsize} deep); "
+                            f"request for tenant {tenant!r} shed",
+                            tenant=tenant,
+                        ) from None
+            time.sleep(0.001)  # backpressure: wait for a slot
+        with self._lock:
+            self.submitted += 1
+        self._watchdog.track(item.future, deadline, tenant)
+        return item.future
+
+    def search(self, tenant: str, clip, block: bool = True) -> dict:
+        """Synchronous convenience wrapper around :meth:`submit`."""
+        return self.submit(tenant, clip, block=block).result()
+
+    # -- the batcher loop --------------------------------------------------
+
+    def _take(self, timeout: float) -> _Pending | None:
+        if self._stash:
+            return self._stash.popleft()
+        try:
+            return self._q.get(timeout=timeout)
+        except queue_mod.Empty:
+            return None
+
+    def _run(self) -> None:
+        while True:
+            if self._closed.is_set():
+                # exit promptly: anything still queued/stashed is failed
+                # by close()'s drain
+                return
+            item = self._take(timeout=0.05)
+            if item is None:
+                continue
+            batch = [item]
+            shape = tuple(item.clip.shape)
+            deadline = item.t_submit + self.batch_wait_s
+            # coalesce with earlier same-shape stash leftovers first
+            kept: collections.deque[_Pending] = collections.deque()
+            while self._stash and len(batch) < self.max_batch:
+                nxt = self._stash.popleft()
+                if tuple(nxt.clip.shape) == shape:
+                    batch.append(nxt)
+                else:
+                    kept.append(nxt)
+            kept.extend(self._stash)
+            self._stash = kept
+            # then the live queue: wait out the deadline for a fuller
+            # batch, and past it take only what is already here —
+            # bounded to 2 * max_batch pulls per cycle, so a sustained
+            # other-shape stream can neither livelock this batch nor
+            # grow the stash without bound
+            skipped: list[_Pending] = []
+            while (
+                len(batch) < self.max_batch
+                and len(batch) + len(skipped) < 2 * self.max_batch
+            ):
+                rem = deadline - time.time()
+                try:
+                    if rem > 0:
+                        nxt = self._q.get(timeout=rem)
+                    else:
+                        nxt = self._q.get_nowait()
+                except queue_mod.Empty:
+                    break
+                if tuple(nxt.clip.shape) == shape:
+                    batch.append(nxt)
+                else:
+                    skipped.append(nxt)
+            self._stash.extend(skipped)  # next cycle, arrival order kept
+            try:
+                self._dispatch(self._form_dedup_groups(batch))
+            except Exception:  # noqa: BLE001 — the batcher must survive
+                # _dispatch fails futures itself; this is a belt for
+                # future-state races — a dead batcher thread would hang
+                # every later request
+                pass
+
+    def _form_dedup_groups(self, batch: list[_Pending]) -> list[_Pending]:
+        """Arrange a formed microbatch into shared-stream dedup groups:
+        requests whose clips hash equal become adjacent (stable within a
+        group, groups in first-arrival order).  Rows the dedup will
+        collapse (every request beyond the first of its clip) are
+        counted for :meth:`metrics`."""
+        groups: dict[tuple, list[_Pending]] = {}
+        singles: list[_Pending] = []  # unhashed clips: never deduped
+        order: list[tuple] = []  # first-arrival group order
+        for p in batch:
+            if p.clip_id is None:
+                singles.append(p)
+                continue
+            if p.clip_id not in groups:
+                order.append(p.clip_id)
+            groups.setdefault(p.clip_id, []).append(p)
+        shared = sum(len(g) - 1 for g in groups.values())
+        if shared:
+            with self._lock:
+                self.dedup_grouped += shared
+        return [p for k in order for p in groups[k]] + singles
+
+    @staticmethod
+    def _claim(future: Future) -> bool:
+        """``set_running_or_notify_cancel`` tolerant of the watchdog
+        having already resolved the future (raises from FINISHED)."""
+        try:
+            return future.set_running_or_notify_cancel()
+        except Exception:  # noqa: BLE001 — InvalidStateError
+            return False
+
+    def _expire(self, p: _Pending, batch_id: int | None) -> None:
+        if resolve_exception(
+            p.future,
+            DeadlineExceeded(
+                f"deadline passed before dispatch for tenant {p.tenant!r}",
+                tenant=p.tenant,
+                batch_id=batch_id,
+            ),
+        ):
+            with self._lock:
+                self.deadline_missed += 1
+                self.failed += 1
+
+    def _dispatch(self, batch: list[_Pending]) -> None:
+        # claim each future before any work: a cancelled future drops
+        # out, and claiming locks out late cancels during the server
+        # call.  _execute assumes every future it sees is claimed.
+        with self._lock:
+            self._batch_seq += 1
+            batch_id = self._batch_seq
+        batch = [p for p in batch if self._claim(p.future)]
+        if batch:
+            self._execute(batch, batch_id)
+
+    def _run_mode(self, mode: str, batch: list[_Pending]) -> list:
+        """One dispatch in the given ladder mode.  ``pooled`` defers to
+        the server's configured preference (``cfg.pooled_queries``);
+        ``sequential`` forces the per-tenant dispatch loop; ``single``
+        additionally drops microbatching — one server call per request,
+        the floor the ladder can always serve from."""
+        keys = [p.clip_id for p in batch]
+        reqs = [(p.tenant, p.clip) for p in batch]
+        if mode == "pooled":
+            # fingerprints were hashed at submit: the executor's dedup
+            # must not re-read the clip bytes per batch
+            return self.server.search_batch(reqs, clip_keys=keys)
+        if mode == "sequential":
+            return self.server.search_batch(reqs, pooled=False, clip_keys=keys)
+        outs = []
+        for req, key in zip(reqs, keys):
+            outs.extend(
+                self.server.search_batch([req], pooled=False, clip_keys=[key])
+            )
+        return outs
+
+    def _execute(self, batch: list[_Pending], batch_id: int) -> None:
+        """Serve one claimed microbatch to completion: ladder-mode
+        selection, transient-failure retries under the seeded backoff,
+        deadline pruning between attempts, and typed-error resolution.
+        Every future in ``batch`` is resolved by the time this returns
+        (or already was, by the watchdog/close)."""
+        # the retry schedule ends once a sleep would run past the
+        # batch's earliest request deadline
+        deadlines = [p.deadline for p in batch if p.deadline is not None]
+        delays = self.retry.delays(
+            deadline=min(deadlines) if deadlines else None
+        )
+        while True:
+            now = time.time()
+            live: list[_Pending] = []
+            for p in batch:
+                if p.future.done():  # watchdog/cancel won the race
+                    continue
+                if p.deadline is not None and now >= p.deadline:
+                    self._expire(p, batch_id)
+                    continue
+                live.append(p)
+            if not live:
+                return
+            batch = live
+            mode = self.ladder.select()
+            try:
+                outs = self._run_mode(mode, batch)
+            except Exception as exc:  # noqa: BLE001 — routed into futures
+                # validation errors neither trip breakers nor retry: a
+                # malformed request fails every rung identically
+                if not is_validation_error(exc):
+                    self.ladder.report(mode, ok=False)
+                    if self.ladder.peek() != mode:
+                        # the ladder degraded under us: re-dispatch on the
+                        # lower rung — degradation is not a retry and must
+                        # not consume the backoff budget
+                        continue
+                    if is_transient(exc):
+                        delay = next(delays, None)
+                        if delay is not None:
+                            with self._lock:
+                                self.retries += 1
+                            time.sleep(delay)
+                            continue
+                if len(batch) > 1:
+                    # one bad request fails the batched call upfront (the
+                    # server validates before any device work): retry
+                    # singly so the good requests still complete
+                    for p in batch:
+                        self._execute([p], batch_id)
+                    return
+                p = batch[0]
+                if isinstance(exc, ServingError) or is_validation_error(exc):
+                    err: BaseException = exc  # typed/caller error: as-is
+                else:
+                    err = BatchExecutionError(
+                        f"batch {batch_id} failed in {mode!r} mode after "
+                        f"retries: {exc}",
+                        tenant=p.tenant,
+                        batch_id=batch_id,
+                    )
+                    err.__cause__ = exc
+                if resolve_exception(p.future, err):
+                    with self._lock:
+                        self.failed += 1
+                return
+            self.ladder.report(mode, ok=True)
+            self._deliver(batch, outs, batch_id)
+            return
+
+    def _deliver(
+        self, batch: list[_Pending], outs: list, batch_id: int
+    ) -> None:
+        now = time.time()
+        with self._lock:
+            self.batches += 1
+            self._batch_sizes.append(len(batch))
+        for p, out in zip(batch, outs):
+            if isinstance(out, ServingError):
+                # signal-integrity quarantine: the server isolated this
+                # row; the rest of the batch delivered untouched
+                out.tenant = out.tenant or p.tenant
+                out.batch_id = batch_id
+                if resolve_exception(p.future, out):
+                    with self._lock:
+                        self.quarantined += 1
+                        self.failed += 1
+                continue
+            out["queue_latency_s"] = now - p.t_submit
+            if resolve_result(p.future, out):
+                with self._lock:
+                    self.completed += 1
+                    self._latencies.append(now - p.t_submit)
+
+    # -- lifecycle / observability ----------------------------------------
+
+    def _on_deadline_expired(self, tenant: str | None) -> None:
+        # watchdog resolved an overdue future with DeadlineExceeded
+        with self._lock:
+            self.deadline_missed += 1
+            self.failed += 1
+
+    def _check_liveness(self) -> None:
+        # watchdog tick: a dead batcher thread would hang every queued
+        # future — close intake and resolve the backlog instead
+        if self._closed.is_set() or self._thread.is_alive():
+            return
+        with self._intake_lock:
+            if self._closed.is_set():
+                return
+            self._closed.set()
+        self._drain_and_fail(
+            lambda p: BatchExecutionError(
+                "scheduler batcher thread died", tenant=p.tenant
+            )
+        )
+
+    def _drain_and_fail(self, make_exc) -> None:
+        """Resolve everything still queued/stashed with ``make_exc(p)``."""
+        leftovers = list(self._stash)
+        self._stash.clear()
+        while True:
+            try:
+                leftovers.append(self._q.get_nowait())
+            except queue_mod.Empty:
+                break
+        for p in leftovers:
+            if resolve_exception(p.future, make_exc(p)):
+                with self._lock:
+                    self.failed += 1
+
+    def close(self) -> None:
+        """Stop the batcher; resolve anything still queued with
+        :class:`SchedulerClosed` (futures are never abandoned)."""
+        with self._intake_lock:
+            # under the intake lock: a submit() that already passed the
+            # closed check finishes its put before we proceed
+            if self._closed.is_set():
+                self._watchdog.close()
+                return
+            self._closed.set()
+        self._thread.join()
+        self._drain_and_fail(
+            lambda p: SchedulerClosed("scheduler closed", tenant=p.tenant)
+        )
+        self._watchdog.close()
+
+    def __enter__(self) -> "MicrobatchScheduler":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def metrics(self) -> dict:
+        """Scheduler counters + end-to-end latency percentiles +
+        resilience state (ladder mode, breaker snapshots, deadline/
+        retry/quarantine counters)."""
+        with self._lock:
+            lats = sorted(self._latencies)
+            sizes = list(self._batch_sizes)
+            out = {
+                "queue_depth": self._q.qsize() + len(self._stash),
+                "max_queue": self._q.maxsize,
+                "submitted": self.submitted,
+                "completed": self.completed,
+                "rejected": self.rejected,
+                "failed": self.failed,
+                "batches": self.batches,
+                "dedup_grouped": self.dedup_grouped,
+                "mean_batch_size": (
+                    sum(sizes) / len(sizes) if sizes else 0.0
+                ),
+                "mode": self.ladder.peek(),
+                "ladder": self.ladder.metrics(),
+                "deadline_missed": self.deadline_missed,
+                "retries": self.retries,
+                "quarantined": self.quarantined,
+                "watchdog_expired": self._watchdog.expired,
+                "default_deadline_s": self.default_deadline_s,
+            }
+        for name, q in (("p50", 0.50), ("p90", 0.90), ("p99", 0.99)):
+            out[f"latency_{name}_ms"] = (
+                1e3 * lats[min(int(q * len(lats)), len(lats) - 1)]
+                if lats
+                else 0.0
+            )
+        return out
 
 
 # ---------------------------------------------------------------------------
