@@ -149,7 +149,31 @@ Phases, each reported on lines of its own:
              also the library time; float32 rows carry both bounds,
              TF32 / 3 and float32 FMA); B1 likewise, bitwise, at the
              classifier's shapes (16 spectra against a (9, 1, F)
-             grating, F from the 60x80x16 clip's FFT grid).
+             grating, F from the 60x80x16 clip's FFT grid).  The
+             ``predict`` routes take host clips through pinned buffers;
+             digital and spectral are also timed with the pageable copy
+             they replaced, in turns.
+8. train   — the same network trained on the card: one ``digital`` step
+             (B4 forward, plain backward) against one ``spectral`` step
+             from the seeded init and the first batch of 32 (each
+             parameter's gradient within relative L2 1e-4), B4's
+             autograd against autograd of its plain version (1e-5),
+             ``sthc_physical`` in grad mode raising (B1 has no
+             backward), 10 timed steps on each route; then, counted,
+             ``train_hybrid.train_steps`` for 45 epochs (270 steps of
+             32) on ``spectral`` (AdamW, warmup into a cosine decay; loss
+             every 20 steps, median step ms by host clock after a
+             synchronize, step 0 excluded), evaluation of val on
+             spectral and test on spectral, digital (B4) and
+             sthc_physical (B1) with their confusion matrices, digital
+             and spectral predictions equal outside near-ties, and the
+             fidelity ablation's rows (every stack of
+             ``sthc_kth.fidelity_stacks()`` on one grating cache) beside
+             ``BENCH_ablation.json``'s accuracies and the paper's 0.5972.
+             Checks: test accuracy on spectral and digital >= 0.93,
+             every cumulative stack >= 0.90, the last logged loss < 0.35,
+             B4 and B1 launched in the counted run; B4 is held against
+             its plain version at the training batch and timed.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -237,6 +261,15 @@ TIE = 1e-4  # top-two logits this close (relative to their scale) may break eith
 CLASSIFY_BATCH = 16  # clips per batch, as benchmarks/accuracy.py evaluates
 CLASSIFY_REPS = 7  # timed batches per route, after one warm-up
 STREAM_FRAMES = 512  # frames of each of the four long clips
+# the training phase: the reference's recipe (benchmarks/accuracy.py) and
+# its bounds: digital and spectral gradients of one step (relative L2),
+# test accuracy on both (134 of 144 clips), every cumulative ablation
+# stack, and the last logged loss (a quarter of ln 4)
+TRAIN_BATCH, TRAIN_EPOCHS = 32, 45
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_ACC_MIN = 0.93
+ABLATION_ACC_MIN = 0.90
+TRAIN_LOSS_MAX = 0.35
 # the reference conv3d test sweep's shapes (tests/test_kernels.py):
 # (b, c, o, k, h, t) -> x (b, c, h, h+2, t), w (o, c, k, k, min(k, t))
 CONV_SWEEP = (
@@ -1892,6 +1925,24 @@ def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
                 f"max {max(lat) * 1e3:.3f}, n={len(lat)})  {CLASSIFY_BATCH / med:10.1f} clips/s  "
                 f"accuracy {report['routes'][name]['accuracy']:.4f} (random weights)"
             )
+        # the pinned-copy rider: host clips staged through pinned buffers
+        # (the routes above) against the pageable copy they replace, in
+        # turns (pageable, pinned, pinned, pageable)
+        report["pinned_vs_pageable"] = {}
+        for impl in ("digital", "spectral"):
+            def pageable(b, impl=impl):
+                x = torch.from_numpy(b).to("cuda")
+                return hybrid.predict(params, x, cfg, impl=impl).cpu().numpy()
+
+            lat = {"pageable": [], "pinned": []}
+            for kind in ("pageable", "pinned", "pinned", "pageable"):
+                got = _timed(pageable if kind == "pageable" else routes[impl], batches)
+                lat[kind] += got
+                digital_calls += (1 + len(got)) * (impl == "digital")
+            meds = {k: float(np.median(v)) * 1e3 for k, v in lat.items()}
+            report["pinned_vs_pageable"][impl] = {"median_ms": meds, "latency_s": lat}
+            print(f"classify: {impl:8s} clips pinned median {meds['pinned']:.3f} ms vs pageable "
+                  f"{meds['pageable']:.3f} ms (n={len(lat['pinned'])} each, in turns)")
         ratio = report["routes"]["digital"]["median_ms"] / report["routes"]["spectral"]["median_ms"]
         report["digital_vs_spectral_ratio"] = ratio
         print(f"classify: digital / spectral median batch latency {ratio:.3f}")
@@ -2022,6 +2073,202 @@ def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
     return report, rows
 
 
+def _step_grads(hybrid, params, batch, cfg, impl) -> dict[str, torch.Tensor]:
+    """Each parameter's gradient of the batch loss on one route."""
+    named = dict(params.named_parameters())
+    loss, _ = hybrid.loss_fn(params, batch, cfg, impl=impl)
+    return dict(zip(named, torch.autograd.grad(loss, list(named.values()))))
+
+
+def _timed_steps(steps, n: int) -> tuple[list[float], list]:
+    """Host seconds of the first ``n`` steps of a ``train_steps``
+    iterator, each ended by ``torch.cuda.synchronize()``, and every
+    step's aux."""
+    times, auxes = [], []
+    t0 = time.perf_counter()
+    for i, aux in steps:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        times.append(t1 - t0)
+        auxes.append(aux)
+        t0 = t1
+        if i + 1 == n:
+            break
+    return times, auxes
+
+
+def _bench_ablation() -> dict[str, float]:
+    """The reference's committed ablation accuracies (``BENCH_ablation.json``)."""
+    with open(os.path.join(ROOT, "BENCH_ablation.json")) as fh:
+        rows = json.load(fh)["rows"]
+    return {r["name"]: float(r["derived"].split(";")[0].removeprefix("acc="))
+            for r in rows if r["name"].startswith("ablation_") and r["name"] != "ablation_cache"}
+
+
+def phase_train(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
+    """Train the paper's hybrid 3-D CNN at its full geometry on the card
+    (45 epochs of 32 on ``spectral``, from a seeded init), then evaluate
+    it on every backend and sweep the fidelity ablation; returns the
+    report and B4's row at the training batch."""
+    from repro_torch.configs import sthc_kth
+    from repro_torch.core import fidelity, hybrid
+    from repro_torch.data import kth_synthetic as kth
+    from repro_torch.kernels.conv3d import kernel as conv_kernel
+    from repro_torch.kernels.conv3d import ops as conv_ops
+    from repro_torch.kernels.conv3d import ref as conv_ref
+    from repro_torch.launch import train_hybrid as th
+
+    t_phase = time.perf_counter()
+    cfg = sthc_kth.config()
+    params = hybrid.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
+    x_train, y_train = kth.make_split("train")
+    first = next(kth.batches(x_train, y_train, TRAIN_BATCH, np.random.RandomState(0)))
+    batch = {"video": torch.from_numpy(first["video"]).cuda(),
+             "label": torch.from_numpy(first["label"]).cuda()}
+    shapes = (tuple(batch["video"].shape), tuple(params.conv_w.shape))
+    route = conv_kernel.route(*shapes, torch.float32)
+    plan = conv_kernel.tc_plan(*shapes) if route == "wgmma" else conv_kernel.plan(*shapes)
+    report = {"batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS, "seed": seed,
+              "b4_route_at_batch": route, "b4_plan_at_batch": dataclasses.asdict(plan)}
+    print(f"train: B4 at batch {TRAIN_BATCH}: route {report['b4_route_at_batch']}, "
+          f"plan {report['b4_plan_at_batch']}")
+
+    # one digital step (B4 forward, plain backward) against one spectral
+    # step from the same parameters and batch: each gradient
+    g_dig = _step_grads(hybrid, params, batch, cfg, "digital")
+    g_spec = _step_grads(hybrid, params, batch, cfg, "spectral")
+    rels = {name: _rel_l2(g_dig[name], g_spec[name]) for name in g_dig}
+    report["digital_vs_spectral_grad_rel_l2"] = rels
+    print("train: digital vs spectral gradients, relative L2: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in rels.items()) + f" (bound {TRAIN_GRAD_RTOL:g})")
+    if not all(v <= TRAIN_GRAD_RTOL for v in rels.values()):
+        raise AssertionError(f"digital and spectral gradients differ: {rels}")
+    del g_dig, g_spec
+    # B4's autograd (kernel forward, plain backward) against autograd of
+    # the plain version, on a loss that feeds the forward back (g = y)
+    b4 = {}
+    for name, fn in (("b4", conv_ops.conv3d), ("plain", conv_ref.conv3d_ref)):
+        x = batch["video"].clone().requires_grad_()
+        w = params.conv_w.detach().clone().requires_grad_()
+        y = fn(x, w)
+        b4[name] = torch.autograd.grad(0.5 * torch.sum(y * y), [x, w])
+    rel_b4 = {k: _rel_l2(a, b) for k, a, b in zip(("x", "w"), b4["b4"], b4["plain"])}
+    report["b4_autograd_rel_l2"] = rel_b4
+    print(f"train: B4 autograd vs plain autograd: dx {rel_b4['x']:.3g}, dw {rel_b4['w']:.3g} "
+          f"(bound {CONV_RTOL:g})")
+    if not all(v <= CONV_RTOL for v in rel_b4.values()):
+        raise AssertionError(f"B4's gradients differ from the plain version's: {rel_b4}")
+    del b4
+    # the STHC routes are inference-only: B1 refuses a graph
+    try:
+        hybrid.loss_fn(params, batch, cfg, impl="sthc_physical")
+    except ValueError as e:
+        if "no backward" not in str(e):
+            raise
+        report["b1_grad_guard"] = str(e)
+        print(f"train: sthc_physical in grad mode raises: {e}")
+    else:
+        raise AssertionError("B1 ran in grad mode on an input that requires a gradient")
+
+    # the median step on each route, 10 steps of a throwaway model each,
+    # then 5 more profiled
+    for impl in ("digital", "spectral"):
+        tmp = hybrid.init_params(cfg, torch.Generator("cuda").manual_seed(seed + 1), device="cuda")
+        steps = th.train_steps(cfg, tmp, epochs=3, impl=impl)
+        times, _ = _timed_steps(steps, 11)
+        med = float(np.median(times[1:]))
+        prof = _profile_steady(lambda: next(steps))
+        report[f"step_ms_{impl}"] = {"median": med * 1e3, "steps_s": times[1:], "profile": prof}
+        print(f"train: {impl:8s} step median {med * 1e3:.3f} ms (min {min(times[1:]) * 1e3:.3f}, "
+              f"max {max(times[1:]) * 1e3:.3f}, n=10)  {TRAIN_BATCH / med:.1f} clips/s")
+        busy = ("not measured" if prof["busy_share"] is None
+                else f"{prof['device_ms']:.3f} ms ({prof['busy_share']:.1%})")
+        print(f"profile: train {impl} step wall {prof['wall_ms']:.3f} ms, device busy {busy}")
+        for kn, ms in prof["top_kernels_ms"]:
+            print(f"profile:   {ms:9.3f} ms  {kn}")
+        del tmp, steps
+
+    # the main path, counted: train on spectral, evaluate on every backend,
+    # sweep the ablation
+    conv_kernel.reset_launches()
+    stmul_kernel.reset_launches()
+    t0 = time.perf_counter()
+    times, auxes = _timed_steps(th.train_steps(cfg, params, epochs=TRAIN_EPOCHS), 10**9)
+    train_s = time.perf_counter() - t0
+    losses = {i: float(a["loss"]) for i, a in enumerate(auxes) if i % 20 == 0}
+    for i, loss in losses.items():
+        print(f"train: step {i:3d} loss {loss:.4f} acc {float(auxes[i]['accuracy']):.3f}")
+    med = float(np.median(times[1:]))
+    last = losses[max(losses)]
+    report |= {"steps": len(times), "train_s": train_s, "first_step_s": times[0],
+               "step_ms_median": med * 1e3, "clips_per_s": TRAIN_BATCH / med,
+               "clips_per_s_whole_run": len(times) * TRAIN_BATCH / train_s,
+               "logged_losses": losses}
+    print(f"train: {len(times)} steps in {train_s:.2f} s (first step {times[0]:.2f} s, with the "
+          f"split's render and copy); step median {med * 1e3:.3f} ms, {TRAIN_BATCH / med:.1f} "
+          f"clips/s ({len(times) * TRAIN_BATCH / train_s:.1f} over the whole run)")
+    print(f"train: last logged loss (step {max(losses)}) {last:.4f} (bound {TRAIN_LOSS_MAX:g})")
+    if len(times) != TRAIN_EPOCHS * (len(y_train) // TRAIN_BATCH):
+        raise AssertionError(f"trained {len(times)} steps")
+    if not last < TRAIN_LOSS_MAX:
+        raise AssertionError(f"the last logged loss {last:.4f} is not below {TRAIN_LOSS_MAX}")
+
+    acc = {}
+    for split, impl in (("val", "spectral"), ("test", "spectral"), ("test", "digital"),
+                        ("test", "sthc_physical")):
+        acc[f"{split}_{impl}"], conf = th.evaluate(cfg, params, split, impl)
+        report[f"confusion_{split}_{impl}"] = conf.tolist()
+        print(f"train: {split:4s} accuracy {impl:13s} {acc[f'{split}_{impl}']:.4f}"
+              f"  confusion {conf.tolist()}")
+    report["accuracy"] = acc
+    x_test, _ = kth.make_split("test")
+    with torch.no_grad():
+        logits = {impl: torch.cat([hybrid.forward(params, x_test[i : i + CLASSIFY_BATCH], cfg, impl)
+                                   for i in range(0, len(x_test), CLASSIFY_BATCH)])
+                  for impl in ("digital", "spectral")}
+    report["digital_vs_spectral_ties"] = _same_classes(
+        "trained digital vs spectral", logits["digital"].argmax(-1).cpu().numpy(),
+        logits["spectral"].argmax(-1).cpu().numpy(), logits["digital"])
+    for key in ("test_spectral", "test_digital"):
+        if not acc[key] >= TRAIN_ACC_MIN:
+            raise AssertionError(f"{key} accuracy {acc[key]:.4f} is below {TRAIN_ACC_MIN}")
+
+    rows = th.ablation_rows(cfg, params, log=lambda line: print("train: ablation" + line))
+    bench = _bench_ablation()
+    ablation = {}
+    cumulative = {f"ablation_{name}" for name, _ in fidelity.ablation_stacks()}
+    for row in rows:
+        name, _, derived = row.split(",", 2)
+        fields = dict(f.split("=") for f in derived.split(";")) if "=" in derived else {}
+        ablation[name] = fields or derived
+        if "acc" in fields:
+            ref = bench.get(name)
+            print(f"train: {name:30s} acc {fields['acc']}  (BENCH_ablation.json "
+                  f"{'n/a' if ref is None else f'{ref:.4f}'}; paper hybrid test 0.5972)  "
+                  + "  ".join(f"{k}={v}" for k, v in fields.items() if k != "acc"))
+            if name in cumulative and not float(fields["acc"]) >= ABLATION_ACC_MIN:
+                raise AssertionError(f"{name} accuracy {fields['acc']} is below {ABLATION_ACC_MIN}")
+        else:
+            print(f"train: {name} {derived}")
+    report["ablation"] = ablation
+    if not cumulative <= set(ablation):
+        raise AssertionError(f"ablation rows miss {sorted(cumulative - set(ablation))}")
+    torch.cuda.synchronize()
+    b4_n = conv_kernel.conv3d_cuda.launches
+    b1_n = stmul_kernel.spectral_mac_cuda.launches
+    report["launches"] = {"conv3d": b4_n, "spectral_mac": b1_n}
+    print(f"train: launches in the phase's main path: conv3d {b4_n}, spectral_mac {b1_n}")
+    if b4_n <= 0 or b1_n <= 0:
+        raise AssertionError(f"a kernel of the path did not launch: B4 {b4_n}, B1 {b1_n}")
+
+    w = params.conv_w.detach()
+    rows = [_conv_row(f"[{TRAIN_BATCH}x60x80x16]", batch["video"], w, b4_n, CONV_RTOL,
+                      want_route="wgmma")]
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"train: phase {report['seconds']:.1f} s")
+    return report, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2053,6 +2300,8 @@ def main() -> int:
     rows += flash_rows
     report["classify"], classify_rows = phase_classify(args.seed, kernel)
     rows += classify_rows
+    report["train"], train_rows = phase_train(args.seed, kernel)
+    rows += train_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

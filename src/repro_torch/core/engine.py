@@ -705,7 +705,7 @@ class QueryEngine:
             if readout_k is not None:
                 return TopKDetections(out[0], out[1], out_shape)
             return out
-        cursor = spectral_conv.StreamCursor(plan, mbw)
+        cursor = spectral_conv.stream_cursor(x.shape[-1], kt, plan.block_t, plan.chunk, mbw)
         x_scale = self._host_scale(x) if grating.encode else None
         upload = _SegmentUploader(self.device)
         outs, nv_locals, t0s = [], [], []
@@ -998,7 +998,7 @@ class QueryEngine:
                         for b0, nb, oo, o in splits
                     ]
             else:
-                cursor = spectral_conv.StreamCursor(plan, mbw)
+                cursor = spectral_conv.stream_cursor(x.shape[-1], kt, plan.block_t, plan.chunk, mbw)
                 x_scale = self._host_scale(x) if g0.encode else None
                 upload = _SegmentUploader(self.device)
                 seg_outs, nv_locals, t0s = [], [], []
@@ -1267,7 +1267,14 @@ class GratingCache:
 
         ``key`` lets long-lived callers hash the kernel bytes once;
         ``admit`` (``() -> bool``) is consulted under the cache lock just
-        before a fresh grating is inserted — False serves it uncached."""
+        before a fresh grating is inserted — False serves it uncached.
+
+        Kernels that require a gradient, in grad mode, bypass the cache
+        (as the reference's traced kernels do): their grating carries the
+        graph back to them, and a cached copy recorded without one would
+        cut it for every later caller."""
+        if isinstance(kernels, Tensor) and kernels.requires_grad and torch.is_grad_enabled():
+            return engine.record(kernels, signal_shape)
         if key is None:
             key = self.key_for(kernels, signal_shape, engine.config)
         while True:

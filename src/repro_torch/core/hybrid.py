@@ -1,5 +1,5 @@
-"""Hybrid optoelectronic 3-D CNN, inference path (port of
-``repro.core.hybrid``; paper §3.2, §4).
+"""Hybrid optoelectronic 3-D CNN (port of ``repro.core.hybrid``; paper
+§3.2, §4).
 
 Architecture exactly as the paper's proof of concept:
 
@@ -24,8 +24,17 @@ The ``impl`` switch selects the conv backend:
 The STHC backends run the spectral MAC on kernel B1 on the card.  The
 parameters live in a :class:`HybridCNN` module under the reference's
 names and layouts (``fc1_w`` is (features, hidden), applied as
-``y @ W``); they are inference-only (no gradient), since training the
-hybrid is not ported yet.
+``y @ W``) and require a gradient: :func:`loss_fn` gives a graph that
+``.backward()`` trains through on the ``digital`` route (B4's backward
+recomputes through its plain version) and the ``spectral`` one (plain
+torch FFTs).  The STHC routes are inference-only on the card, as the
+reference's B1 has no backward: B1 raises rather than cut a graph.
+:func:`predict` runs under ``torch.no_grad()``.
+
+:func:`max_pool3d` is an ``amax``, whose backward splits a tied
+window's gradient among the tied elements where the reference's
+``reduce_window`` gives it to one; the two agree wherever the tie is
+ReLU's zeros (the derivative of ReLU at 0 is 0 in both packages).
 """
 
 from __future__ import annotations
@@ -34,13 +43,14 @@ import dataclasses
 import threading
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core import fidelity, spectral_conv
-from repro_torch.core.engine import as_tensor
+from repro_torch.core.engine import _SegmentUploader, as_tensor
 from repro_torch.core.sthc import STHC, STHCConfig
 from repro_torch.kernels.conv3d import ops as conv3d_ops
 
@@ -99,7 +109,7 @@ class HybridCNN(nn.Module):
         self.cfg = cfg
         for name, shape in param_shapes(cfg).items():
             t = torch.zeros(shape, dtype=cfg.dtype, device=device)
-            setattr(self, name, nn.Parameter(t, requires_grad=False))
+            setattr(self, name, nn.Parameter(t))
 
     def forward(self, x, impl: str = "digital", sthc: STHC | None = None) -> Tensor:
         return forward(self, x, self.cfg, impl=impl, sthc=sthc)
@@ -171,9 +181,33 @@ def _sthc_required(sthc: STHC | None) -> STHC:
     return sthc
 
 
-def _input(params: HybridCNN, x) -> Tensor:
-    """Clips as a tensor on the parameters' device and in their dtype."""
-    return as_tensor(x, params.conv_w.device, params.conv_w.dtype)
+class _ClipUploader(threading.local):
+    """One :class:`~repro_torch.core.engine._SegmentUploader` per thread
+    and device: host clips reach the card through its two reused pinned
+    buffers and an asynchronous copy, not a pageable one."""
+
+    def __init__(self):
+        self.by_device: dict[torch.device, _SegmentUploader] = {}
+
+    def __call__(self, x, device: torch.device) -> Tensor:
+        up = self.by_device.get(device)
+        if up is None:
+            up = self.by_device[device] = _SegmentUploader(device)
+        return up(as_tensor(x, "cpu"))
+
+
+_UPLOAD = _ClipUploader()
+
+
+def clips_to_device(params: HybridCNN, x) -> Tensor:
+    """Clips as a tensor on the parameters' device and in their dtype;
+    float32 host clips bound for the card are staged through pinned
+    buffers."""
+    device, dtype = params.conv_w.device, params.conv_w.dtype
+    host = isinstance(x, np.ndarray) or (isinstance(x, Tensor) and x.device.type == "cpu")
+    if host and device.type == "cuda" and dtype == torch.float32:
+        return _UPLOAD(x, device)
+    return as_tensor(x, device, dtype)
 
 
 def conv_layer(
@@ -185,7 +219,7 @@ def conv_layer(
 ) -> Tensor:
     """The (optionally optical) 3-D conv layer, pre-activation."""
     w = params.conv_w
-    x = _input(params, x)
+    x = clips_to_device(params, x)
     if impl == "digital":
         y = conv3d_ops.conv3d(x, w)
     elif impl == "spectral":
@@ -215,7 +249,7 @@ def conv_layer_stream(
     ``block_t`` is the coherence window T2 in frames (default:
     ``cfg.frames``)."""
     w = params.conv_w
-    x = _input(params, x)
+    x = clips_to_device(params, x)
     # None (not falsy 0) is the default sentinel: an explicit invalid
     # block_t must reach stream_plan's validation, not be remapped
     bt = cfg.frames if block_t is None else int(block_t)
@@ -258,8 +292,9 @@ def forward(
 def loss_fn(
     params: HybridCNN, batch: dict, cfg: HybridConfig, impl: str = "digital"
 ) -> tuple[Tensor, dict[str, Tensor]]:
-    """Cross-entropy loss and accuracy of a batch ``{"video", "label"}``
-    (forward only)."""
+    """Cross-entropy loss (the paper trains with Adam + cross-entropy) and
+    accuracy of a batch ``{"video", "label"}``; the loss carries the graph
+    back to the parameters."""
     logits = forward(params, batch["video"], cfg, impl=impl)
     labels = as_tensor(batch["label"], logits.device, torch.long)
     logp = torch.log_softmax(logits, dim=-1)
@@ -268,6 +303,7 @@ def loss_fn(
     return loss, {"loss": loss, "accuracy": acc}
 
 
+@torch.no_grad()
 def predict(
     params: HybridCNN,
     x,

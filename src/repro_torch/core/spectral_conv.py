@@ -9,8 +9,8 @@ Signals are real (``rfftn`` over the last three axes H, W, T);
 "correlation" is the CNN forward operator ``Y[i] = Σ_m K[m] X[i+m]``.
 FFTs are library calls (``torch.fft``, cuFFT on the card), as ``jnp.fft``
 is in the reference.  The overlap-save windowing arithmetic
-(:class:`StreamPlan`, :class:`StreamCursor`) is pure integer code and
-equals the reference's field by field.
+(:class:`StreamPlan`, :class:`StreamCursor`, :func:`stream_cursor`) is
+pure integer code and equals the reference's field by field.
 """
 
 from __future__ import annotations
@@ -271,6 +271,23 @@ class StreamCursor:
 
     def __len__(self) -> int:
         return len(self.segments)
+
+
+def stream_cursor(
+    T: int,
+    kt: int,
+    block_t: int,
+    chunk_windows: int | None = None,
+    max_buffer_windows: int | None = None,
+) -> StreamCursor:
+    """Cursor over a freshly planned overlap-save pass (pure arithmetic).
+
+    ``max_buffer_windows=None`` means one segment spanning the whole
+    stream (the unbounded one-shot pass)."""
+    plan = stream_plan(T, kt, block_t, chunk_windows)
+    if max_buffer_windows is None:
+        max_buffer_windows = plan.n_blocks
+    return StreamCursor(plan, max_buffer_windows)
 
 
 def window_starts(plan: StreamPlan) -> Tensor:

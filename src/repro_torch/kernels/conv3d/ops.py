@@ -3,18 +3,46 @@
 ``conv3d`` routes by the tensor's device: a CUDA tensor launches the
 hand-written kernel B4 of ``kernel.py`` (or raises), a CPU tensor runs
 its plain version, :func:`ref.conv3d_ref`.  There is no fallback from
-one route to the other.  B4 has no backward: on the card it refuses
-inputs that require a gradient.
+one route to the other.  It is a ``torch.autograd.Function`` whose
+backward recomputes the gradient through the plain version (autograd of
+``F.conv3d`` in full float32, TF32 off), as the flash op's does; there
+is no backward kernel, and the reference has none either (its digital
+route is a ``lax.conv`` with XLA's gradient).
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.spectral_conv import full_precision
 from repro_torch.kernels.conv3d import kernel as _kernel
 from repro_torch.kernels.conv3d import ref as _ref
 
 Tensor = torch.Tensor
+
+
+def _forward(x: Tensor, w: Tensor) -> Tensor:
+    if x.device.type == "cuda":
+        return _kernel.conv3d_cuda(x.contiguous(), w.contiguous())
+    if x.device.type == "cpu":
+        return _ref.conv3d_ref(x, w)
+    raise ValueError(f"conv3d has no kernel for device {x.device}")
+
+
+class _Conv3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _forward(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need) for t, need in zip((x, w), ctx.needs_input_grad)]
+        wanted = [t for t in leaves if t.requires_grad]
+        with torch.enable_grad(), full_precision():
+            grads = iter(torch.autograd.grad(_ref.conv3d_ref(*leaves), wanted, g))
+        return tuple(next(grads) if t.requires_grad else None for t in leaves)
 
 
 def conv3d(x: Tensor, w: Tensor) -> Tensor:
@@ -23,13 +51,7 @@ def conv3d(x: Tensor, w: Tensor) -> Tensor:
     x: (B, C, H, W, T), w: (O, C, kh, kw, kt) → (B, O, OH, OW, OT).  The
     reference's ``block_oh`` / ``block_ot`` TPU tiles are not taken: the
     kernel chooses its own tile (``kernel.plan``)."""
-    if x.device.type == "cuda":
-        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            raise ValueError("kernel B4 has no backward; call conv3d under torch.no_grad()")
-        return _kernel.conv3d_cuda(x.contiguous(), w.contiguous())
-    if x.device.type == "cpu":
-        return _ref.conv3d_ref(x, w)
-    raise ValueError(f"conv3d has no kernel for device {x.device}")
+    return _Conv3d.apply(x, w)
 
 
 def conv3d_strips(x: Tensor, w: Tensor, strip_h: int = 32) -> Tensor:

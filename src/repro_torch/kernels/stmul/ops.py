@@ -4,7 +4,9 @@ Each function keeps the reference's signature on complex tensors with
 arbitrary trailing frequency axes, flattens them, and routes by the
 tensor's device: a CUDA tensor launches the hand-written kernel of
 ``kernel.py`` (or raises), a CPU tensor runs its plain version from
-``ref.py``.  There is no fallback from one to the other.
+``ref.py``.  There is no fallback from one to the other.  The kernels
+have no backward: on the card, a call in grad mode whose inputs require
+a gradient raises (a CPU call's plain version is differentiable).
 
 The TPU kernels needed a real/imag plane split and a ``yr + 1j*yi``
 recombination around every launch; the CUDA kernels read and write
@@ -26,8 +28,20 @@ Tensor = torch.Tensor
 _FFT_AXES = (-3, -2, -1)
 
 
-def _on_cuda(t: Tensor) -> bool:
+def _on_cuda(*inputs: Tensor) -> bool:
+    """Whether the call launches its kernel: True when the first input is
+    a CUDA tensor, False for a CPU one.  The kernels have no backward (nor
+    have the reference's), so a CUDA call in grad mode on inputs that
+    require a gradient raises instead of returning a result cut from the
+    graph."""
+    t = inputs[0]
     if t.device.type == "cuda":
+        if torch.is_grad_enabled() and any(i.requires_grad for i in inputs):
+            raise ValueError(
+                "the stmul kernels have no backward: an input requires a gradient; "
+                "call them under torch.no_grad() (the STHC routes are inference-only "
+                "on the card)"
+            )
         return True
     if t.device.type == "cpu":
         return False
@@ -48,7 +62,7 @@ def spectral_mac(xhat: Tensor, grating: Tensor, *, version: int = 2) -> Tensor:
     O = grating.shape[0]
     xf = xhat.reshape(B, C, -1)
     gf = grating.reshape(O, C, -1)
-    if _on_cuda(xf):
+    if _on_cuda(xf, gf):
         y = _kernel.spectral_mac_cuda(xf.contiguous(), gf.contiguous(), version)
     else:
         y = _ref.spectral_mac_ref(xf, gf, version)
@@ -80,7 +94,7 @@ def spectral_mac_grouped(
     xf = xhat.reshape(B, C, -1)
     pr = pool_re.reshape(so, C, -1)
     pi = pool_im.reshape(so, C, -1)
-    if _on_cuda(xf):
+    if _on_cuda(xf, pr, pi):
         y = _kernel.spectral_mac_grouped_cuda(
             xf.contiguous(), pr.contiguous(), pi.contiguous(), o_start, n_out
         )

@@ -1240,9 +1240,10 @@ class HybridClassifierServer:
         self.params = params.to(self.device)
         self.sthc = STHC(STHCConfig(fidelity=fidelity, device=self.device))
         # record once: the kernels live in the atomic medium
-        self.grating = self.sthc.record(
-            self.params.conv_w, (cfg.height, cfg.width, cfg.frames)
-        )
+        with torch.no_grad():
+            self.grating = self.sthc.record(
+                self.params.conv_w, (cfg.height, cfg.width, cfg.frames)
+            )
 
     def _head(self, conv_out: torch.Tensor) -> torch.Tensor:
         y = conv_out + self.params.conv_b[None, :, None, None, None]
@@ -1252,7 +1253,7 @@ class HybridClassifierServer:
     def classify(self, clips) -> np.ndarray:
         """Class predictions (B,) of clips (B, C, H, W, frames), numpy or
         a tensor."""
-        x = as_tensor(clips, self.device)
+        x = hybrid.clips_to_device(self.params, clips)
         conv = self.sthc.correlate(self.grating, x)  # optical layer
         logits = self._head(conv)  # digital layers
         return torch.argmax(logits, dim=-1).cpu().numpy()

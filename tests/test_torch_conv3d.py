@@ -6,7 +6,10 @@ the CPU, as ``tests/test_kernels.py`` runs it, at small shapes only: it
 unrolls every tap, so the paper-geometry case (9,600 taps) is held
 against the reference's ``conv3d_ref`` (a lax.conv) alone.
 
-On the CPU ``ops.conv3d`` runs the kernel's plain version; the CUDA
+On the CPU ``ops.conv3d`` runs the kernel's plain version, and its
+gradients (an autograd function whose backward recomputes through the
+plain version) are held against ``jax.vjp`` of the reference's
+``direct_correlate3d``; the CUDA
 kernels themselves are held against that plain version on the card by
 ``chip_smoke.py``.  What the CPU can check of them is which one a call
 takes (``kernel.route``), their launch plans (``kernel.plan`` for the
@@ -36,9 +39,11 @@ torch = pytest.importorskip("torch")
 # timing-sensitive tests elsewhere must not starve
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import ml_dtypes  # noqa: E402
 
+from repro.core import spectral_conv as r_sc  # noqa: E402
 from repro.kernels.conv3d import ops as r_ops  # noqa: E402
 from repro.kernels.conv3d import ref as r_ref  # noqa: E402
 from repro_torch.kernels.conv3d import kernel as t_kernel  # noqa: E402
@@ -122,6 +127,39 @@ def test_conv3d_paper_geometry_matches_oracle():
     want = np.asarray(r_ref.conv3d_ref(jnp.asarray(x), jnp.asarray(w)))
     assert got.shape == (1, 9, 31, 41, 9)
     assert _rel_l2(got, want) <= 1e-5
+
+
+GRAD_CASES = [SWEEP[1], SWEEP[3], SWEEP[6], (3, 1, 4, 7, 20, 10)]
+
+
+@pytest.mark.parametrize("b,c,o,k,h,t", GRAD_CASES)
+@pytest.mark.parametrize("wrt", ["x and w", "w"])
+def test_conv3d_gradients_match_plain_autograd_and_reference(b, c, o, k, h, t, wrt):
+    """``ops.conv3d`` is an autograd function whose backward recomputes
+    through the plain version: on the CPU its gradients equal autograd of
+    ``conv3d_ref`` exactly, and are within 1e-5 (relative L2) of
+    ``jax.vjp`` of the reference's ``direct_correlate3d``."""
+    x, w = _inputs(b, c, o, k, h, t)
+    want_y = np.asarray(r_sc.direct_correlate3d(jnp.asarray(x), jnp.asarray(w), "valid"))
+    gy = np.random.RandomState(b + k).randn(*want_y.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, v: r_sc.direct_correlate3d(a, v, "valid"), jnp.asarray(x), jnp.asarray(w))
+    want = dict(zip(("x", "w"), (np.asarray(v) for v in vjp(jnp.asarray(gy)))))
+
+    def grads(fn):
+        xt = torch.from_numpy(x).requires_grad_(wrt == "x and w")
+        wt = torch.from_numpy(w).requires_grad_()
+        y = fn(xt, wt)
+        leaves = [xt, wt] if xt.requires_grad else [wt]
+        out = torch.autograd.grad(y, leaves, torch.from_numpy(gy))
+        return dict(zip(("x", "w") if xt.requires_grad else ("w",), out)), y
+
+    got, y = grads(t_ops.conv3d)
+    plain, _ = grads(t_ref.conv3d_ref)
+    assert y.grad_fn is not None and _rel_l2(y.detach().numpy(), want_y) <= CONV_RTOL
+    assert set(got) == ({"x", "w"} if wrt == "x and w" else {"w"})
+    for name, g in got.items():
+        assert torch.equal(g, plain[name]), name
+        assert _rel_l2(g.numpy(), want[name]) <= CONV_RTOL, name
 
 
 def test_kernel_refuses_cpu_tensors_and_ops_refuses_other_devices():

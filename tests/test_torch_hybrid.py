@@ -136,8 +136,8 @@ def test_forward_logits_match_reference(impl):
     want = np.asarray(r_hybrid.forward(params, jnp.asarray(x), r_cfg, impl=impl))
     got = t_hybrid.forward(model, torch.from_numpy(x), t_cfg, impl=impl)
     assert got.shape == (4, t_cfg.num_classes)
-    assert _rel_l2(got.numpy(), want) <= _tol(impl)
-    assert np.array_equal(model(torch.from_numpy(x), impl=impl).numpy(), got.numpy())
+    assert _rel_l2(got.detach().numpy(), want) <= _tol(impl)
+    assert torch.equal(model(torch.from_numpy(x), impl=impl), got)
 
 
 @pytest.mark.parametrize("stack", STACKS)
@@ -147,7 +147,7 @@ def test_forward_with_caller_sthc_matches_reference(stack):
     r_sthc = R_STHC(R_STHCConfig(fidelity=_stack(r_kth_cfg, stack)))
     t_sthc = T_STHC(T_STHCConfig(fidelity=_stack(t_kth_cfg, stack), device="cpu"))
     want = np.asarray(r_hybrid.forward(params, jnp.asarray(x), r_cfg, impl="sthc", sthc=r_sthc))
-    got = t_hybrid.forward(model, x, t_cfg, impl="sthc", sthc=t_sthc).numpy()
+    got = t_hybrid.forward(model, x, t_cfg, impl="sthc", sthc=t_sthc).detach().numpy()
     assert _rel_l2(got, want) <= (EXACT if stack == "digital" else PHYSICAL)
 
 
@@ -156,7 +156,7 @@ def test_conv_layer_stream_matches_reference(impl):
     r_cfg, params, t_cfg, model = _both()
     x = _clips(3, 2, r_cfg, frames=31)
     want = np.asarray(r_hybrid.conv_layer_stream(params, jnp.asarray(x), r_cfg, impl=impl))
-    got = t_hybrid.conv_layer_stream(model, torch.from_numpy(x), t_cfg, impl=impl).numpy()
+    got = t_hybrid.conv_layer_stream(model, torch.from_numpy(x), t_cfg, impl=impl).detach().numpy()
     assert got.shape == want.shape == (2, 3, 14, 16, 28)
     assert _rel_l2(got, want) <= _tol(impl)
 
@@ -177,8 +177,8 @@ def test_conv_layer_stream_digital_matches_spectral():
                   pool_window=(4, 4, 2), hidden=8)
     _, _, t_cfg, model = _both(cfg_kw, seed=1)
     x = torch.from_numpy(_clips(1, 1, t_cfg, frames=25))
-    ref = t_hybrid.conv_layer_stream(model, x, t_cfg, impl="digital")
-    got = t_hybrid.conv_layer_stream(model, x, t_cfg, impl="spectral")
+    ref = t_hybrid.conv_layer_stream(model, x, t_cfg, impl="digital").detach()
+    got = t_hybrid.conv_layer_stream(model, x, t_cfg, impl="spectral").detach()
     np.testing.assert_allclose(got, ref, atol=2e-4 * float(torch.max(torch.abs(ref))) + 1e-5)
 
 
@@ -189,9 +189,9 @@ def test_loss_fn_matches_reference(impl):
     y = np.arange(8, dtype=np.int32) % 4
     r_loss, r_aux = r_hybrid.loss_fn(params, {"video": jnp.asarray(x), "label": jnp.asarray(y)}, r_cfg, impl)
     t_loss, t_aux = t_hybrid.loss_fn(model, {"video": x, "label": y}, t_cfg, impl)
-    assert abs(float(t_loss) - float(r_loss)) <= EXACT * abs(float(r_loss))
+    assert abs(t_loss.item() - float(r_loss)) <= EXACT * abs(float(r_loss))
     assert float(t_aux["accuracy"]) == float(r_aux["accuracy"])
-    assert float(t_aux["loss"]) == float(t_loss)
+    assert t_aux["loss"].item() == t_loss.item()
 
 
 def test_impl_errors():
@@ -249,8 +249,8 @@ def test_init_params_he_scales():
     cfg = t_kth_cfg.config()
     m = t_hybrid.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert tuple(m.fc1_w.shape) == (cfg.pooled_features, cfg.hidden)
-    assert abs(float(m.conv_w.std()) - (2.0 / 9600) ** 0.5) < 0.02 * (2.0 / 9600) ** 0.5
-    assert not any(p.requires_grad for p in m.parameters())
+    assert abs(m.conv_w.std().item() - (2.0 / 9600) ** 0.5) < 0.02 * (2.0 / 9600) ** 0.5
+    assert all(p.requires_grad for p in m.parameters())  # trainable
     assert float(m.conv_b.abs().sum() + m.fc2_b.abs().sum()) == 0.0
 
 

@@ -215,6 +215,74 @@ def test_stream_plan_rejects_like_reference():
         t_sc.StreamCursor(t_sc.stream_plan(40, 4, 16), 0)
 
 
+# -- stream_cursor (the reference's tests/test_spectral_conv.py:149–201) ------
+
+CURSOR_CASES = [  # (t, kt, extra, mbw) over the reference strategy's ranges
+    (8, 2, 1, 1), (90, 6, 9, 7), (37, 3, 4, 2), (64, 5, 1, 3), (13, 4, 9, 5),
+    (71, 2, 6, 4), (50, 6, 2, 6), (29, 3, 7, 1), (88, 4, 3, 7), (45, 5, 5, 2),
+    (9, 6, 8, 3), (60, 2, 2, 5), (33, 5, 9, 4), (77, 3, 1, 6), (20, 4, 6, 2),
+    (90, 2, 9, 1),
+]
+
+
+@pytest.mark.parametrize("t,kt,extra,mbw", CURSOR_CASES)
+def test_stream_cursor_partitions_windows(t, kt, extra, mbw):
+    """Segments partition the plan's windows and valid outputs, overlap
+    by exactly kt − 1 input frames, fit the constant-memory bound, and
+    equal the reference's ``stream_cursor`` field by field."""
+    if t < kt:
+        t = kt + t
+    block_t = kt - 1 + extra
+    cursor = t_sc.stream_cursor(t, kt, block_t, max_buffer_windows=mbw)
+    plan = cursor.plan
+    segs = list(cursor)
+    assert sum(s.n_windows for s in segs) == plan.n_blocks
+    assert segs[0].t0 == 0 and segs[0].out_t0 == 0
+    out_next = 0
+    for i, s in enumerate(segs):
+        assert s.n_windows <= mbw
+        assert s.out_t0 == out_next
+        out_next += s.n_valid
+        assert s.frames == s.t1 - s.t0 <= cursor.peak_buffer_frames
+        if i > 0:
+            prev = segs[i - 1]
+            assert s.t0 == prev.t0 + prev.n_windows * plan.step
+            assert prev.t1 - s.t0 == kt - 1
+    assert out_next == plan.n_valid
+    assert segs[-1].t1 <= t
+    assert cursor.peak_buffer_frames <= (min(mbw, plan.n_blocks) - 1) * plan.step + plan.block_t
+    ref = r_sc.stream_cursor(t, kt, block_t, max_buffer_windows=mbw)
+    assert [dataclasses.astuple(s) for s in segs] == [dataclasses.astuple(s) for s in ref]
+
+
+def test_stream_cursor_single_segment_when_unbounded():
+    cursor = t_sc.stream_cursor(40, 3, 10, max_buffer_windows=None)
+    assert len(cursor) == 1
+    (seg,) = cursor
+    assert seg.t0 == 0 and seg.n_windows == cursor.plan.n_blocks
+    assert seg.n_valid == cursor.plan.n_valid
+    assert dataclasses.astuple(cursor.plan) == dataclasses.astuple(r_sc.stream_cursor(40, 3, 10).plan)
+
+
+def test_stream_cursor_rejects_bad_budget():
+    for budget in (0, -1):
+        with pytest.raises(ValueError, match="max_buffer_windows"):
+            t_sc.stream_cursor(40, 3, 10, max_buffer_windows=budget)
+        with pytest.raises(ValueError, match="max_buffer_windows"):
+            r_sc.stream_cursor(40, 3, 10, max_buffer_windows=budget)
+
+
+def test_stream_cursor_segment_plans_are_consistent():
+    """Each segment re-planned at its own frame count yields exactly its
+    window and valid counts (the engine's segment loop relies on it)."""
+    cursor = t_sc.stream_cursor(67, 4, 12, chunk_windows=2, max_buffer_windows=3)
+    assert len(cursor) > 1
+    for seg in cursor:
+        sub = t_sc.stream_plan(seg.frames, 4, 12, 2)
+        assert sub.n_blocks == seg.n_windows
+        assert sub.n_valid == seg.n_valid
+
+
 def test_stitch_windows_matches(rng):
     plan = t_sc.stream_plan(40, 4, 16, 2)
     blocks = rng.randn(plan.n_padded // plan.chunk, plan.chunk, 2, 3, 4, 5, plan.step)

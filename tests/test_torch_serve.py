@@ -212,7 +212,9 @@ bad = sorted(n for n in sys.modules if n == "jax" or n.startswith("jax.")
 assert not bad, bad
 new = ("repro_torch.kernels.conv3d.kernel", "repro_torch.kernels.conv3d.ops",
        "repro_torch.kernels.conv3d.ref", "repro_torch.data.kth_synthetic",
-       "repro_torch.core.hybrid", "repro_torch.distributed.fault")
+       "repro_torch.core.hybrid", "repro_torch.distributed.fault",
+       "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+       "repro_torch.optim.compression", "repro_torch.launch.train_hybrid")
 assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
 print("isolated", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
