@@ -37,12 +37,16 @@ Phases, each reported on lines of its own:
              4096 and 8192 frames: its peak device memory may grow by
              less than a quarter of the shorter stream's bytes, and its
              detections must equal the unbounded server's bitwise.
+             The host clips reach the card through pinned staging; both
+             rungs are also timed with the pageable copy it replaced, in
+             turns, and profiled once each for the copies' device ms.
 3. sched   — the same four tenants behind ``MicrobatchScheduler``
              (max_queue 64, max_batch 6, batch_wait_s 0.005), gratings,
              cuFFT batch sizes and both rungs warmed in the main thread
              first.  Open-loop load: 96 single-stream 1024-frame requests
-             per rate, seeded Poisson arrivals at 0.5x and 0.9x of the
-             pooled rung's frames/s from the serve phase, tenants
+             per rate, seeded Poisson arrivals at 0.5x, 0.9x, 1.0x, 1.2x
+             and 1.5x of the pooled rung's frames/s from the serve phase,
+             tenants
              uniform, every third request repeating the previous clip,
              submitted by six client threads; printed: p50/p90/p99
              submit->result latency, delivered frames/s, mean batch,
@@ -52,7 +56,11 @@ Phases, each reported on lines of its own:
              each result within 1e-5 (max relative) of the request
              served alone (peak frames equal unless the alone run's
              volume ties at the scheduled frame), B1 silent while the
-             pooled breaker never tripped.  Chaos storm (the reference's
+             pooled breaker never tripped; above 1.0x a rejection is a
+             result.  One more 0.9x replay under torch.profiler splits a
+             request's time into SHA-1 at submit, queue wait and its
+             batch call, with the device busy ms per batch.  Chaos storm
+             (the reference's
              benchmarks/chaos.py rules, a churning tenant, 32 x 256
              frames, every 8th clip NaN): every future resolves, exactly
              the poisoned ones quarantined, the rest results within
@@ -175,6 +183,38 @@ Phases, each reported on lines of its own:
              B4 and B1 launched in the counted run; B4 is held against
              its plain version at the training batch and timed.
 
+9. replica — the replicated video search (``launch/replica.py``):
+             benchmarks/chaos.py's three replica rows at their request
+             counts, on paper-geometry replicas (each its own server and
+             scheduler, warmed at every batch size first) holding the
+             four tenants, 1024-frame clips.  Storm: 3 replicas, 60
+             requests, a 50 ms dispatch latency on r1, r1 killed after
+             request 20, hedging after 0.25 s; every future resolves, 0
+             lost, availability >= 95 %, every result within 1e-5 of the
+             request alone (peak frames equal outside ties); r1
+             warm-restarted from the tenant manifest on disk passes the
+             bitwise admission probe for all four tenants and answers
+             bitwise as a survivor; whether a request's scores depend on
+             its batch (pooled rows 1-6, sequential) is printed.  Hedge:
+             2 replicas, r0 straggling by max(60 ms, 4x one request
+             alone), 40 searches with hedging off, then on after a
+             quarter of the straggle: hedges > 0 and wins > 0, both p99s.
+             Flap: 2 replicas at the reference's heartbeat thresholds,
+             r0 stalled and revived in a loop under 48 requests: every
+             future resolves, 0 lost, flaps + deaths > 0.  Each replay
+             prints failovers, rescues, hedges, wins, flaps, deaths,
+             spurious deaths (members that died unkilled and unstalled),
+             p50/p90/p99 and its B1/B2/B3 launches (B2 and B3 must run,
+             B1 exactly when a sequential batch ran); then the phase's
+             seconds and peak device memory.
+10. ckpt   — mamba2-370m's parameters (bf16, built on the card by the
+             port's init) and a small float32 / int64 tree through
+             ``CheckpointManager(async_save=True, keep=2)`` in a
+             temporary directory (its free space printed): snapshot ms,
+             write s, restore s onto the card, the restore bitwise; a
+             ckpt_write fault on a third save must surface on ``wait()``
+             with the second save the latest and intact.
+
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
 exits non-zero and prints no result.
@@ -246,7 +286,8 @@ LM_BATCHES = ((4, 2048, 32), (2, 1000, 8))  # (prompts, prompt tokens, new token
 # the scheduler phase: open-loop rates as fractions of the pooled rung's
 # frames/s, requests per rate (one 1024-frame stream each) and the client
 # threads submitting them; results held against alone runs (max relative)
-SCHED_RATES = (0.5, 0.9)
+SCHED_RATES = (0.5, 0.9, 1.0, 1.2, 1.5)  # above 1.0 a rejection is a result
+SCHED_PROFILE_RATE = 0.9  # the profiled replay
 SCHED_REQUESTS = 96
 SCHED_FRAMES = 1024
 SCHED_CLIENTS = 6
@@ -255,6 +296,13 @@ SCHED_RESULT_TIMEOUT_S = 180
 STORM_REQUESTS, STORM_FRAMES, STORM_SEED = 32, 256, 100
 POISON_EVERY = 8  # every 8th storm clip carries NaNs
 BREAKER_RECOVERY_S = 0.15
+# the replica phase: benchmarks/chaos.py's three replica rows at their
+# request counts, paper-geometry replicas, 1024-frame clips; each replica
+# warmed at every batch size its scheduler forms (max_batch 8, the default)
+REPLICA_STORM_REQUESTS, REPLICA_HEDGE_REQUESTS, REPLICA_FLAP_REQUESTS = 60, 40, 48
+REPLICA_FRAMES = 1024
+REPLICA_WARM_ROWS = 8
+REPLICA_AVAILABILITY_MIN = 95.0
 CONV_RTOL, CONV_BF16_RTOL = 1e-5, 1e-2  # B4 vs its plain version, relative L2
 STREAM_RTOL = 2e-4  # streamed digital vs ideal STHC conv (the reference test's bound)
 TIE = 1e-4  # top-two logits this close (relative to their scale) may break either way
@@ -743,6 +791,7 @@ def _device_time(prof, wall_ms: float, calls: int) -> dict:
         "device_ms": busy_ms if by_name else None,
         "busy_share": busy_ms / wall_ms if by_name else None,
         "top_kernels_ms": [(n[:80], ms) for n, ms in top],
+        "by_name_ms": by_name,
     }
 
 
@@ -882,6 +931,8 @@ def phase_serve(kernel, seed: int) -> dict:
         for kname, ms in prof["top_kernels_ms"]:
             print(f"profile:   {ms:9.3f} ms  {kname}")
 
+    report["pinned_vs_pageable"] = _pinned_vs_pageable(server, reqs)
+
     bf16 = _server(tenants, grating_dtype="bfloat16")
     before = _launch_counts(kernel)
     out_bf, lat = _run(bf16, reqs)
@@ -916,6 +967,42 @@ def phase_serve(kernel, seed: int) -> dict:
     report["cursor_memory"] = _cursor_memory(tenants, server, rng)
     report["frames_per_request"] = 1024
     return report
+
+
+def _pinned_vs_pageable(server, reqs) -> dict:
+    """The video rungs' host clips staged through pinned memory (the
+    server's ``staged_to_device``) against the pageable copy it replaced
+    (``as_tensor``), in alternating turns: ``SERVE_REPS`` calls of each on
+    each rung, then one profiled call of each for the host-to-device
+    copies' device ms."""
+    from repro_torch.core.engine import as_tensor
+    from repro_torch.launch import serve as serve_mod
+
+    staged = serve_mod.staged_to_device
+    copy_fns = {"pinned": staged, "pageable": as_tensor}
+    out = {}
+    try:
+        for name, kw in (("pooled", {}), ("sequential", {"pooled": False})):
+            lat = {"pinned": [], "pageable": []}
+            for i in range(SERVE_REPS):
+                for kind in ("pageable", "pinned") if i % 2 == 0 else ("pinned", "pageable"):
+                    serve_mod.staged_to_device = copy_fns[kind]
+                    t0 = time.perf_counter()
+                    server.search_batch(reqs, **kw)
+                    lat[kind].append(time.perf_counter() - t0)
+            copy_ms = {}
+            for kind in ("pinned", "pageable"):
+                serve_mod.staged_to_device = copy_fns[kind]
+                prof = _profile(lambda kw=kw: server.search_batch(reqs, **kw))
+                copy_ms[kind] = sum(ms for k, ms in prof["by_name_ms"].items() if "Memcpy HtoD" in k)
+            meds = {k: float(np.median(v)) * 1e3 for k, v in lat.items()}
+            out[name] = {"median_ms": meds, "latency_s": lat, "htod_copy_device_ms": copy_ms}
+            print(f"serve: {name:10s} clips pinned median {meds['pinned']:.2f} ms vs pageable "
+                  f"{meds['pageable']:.2f} ms (n={SERVE_REPS} each, in turns); host-to-device copies "
+                  f"{copy_ms['pinned']:.3f} vs {copy_ms['pageable']:.3f} ms device time")
+    finally:
+        serve_mod.staged_to_device = staged
+    return out
 
 
 def _cursor_memory(tenants, unbounded, rng) -> dict:
@@ -989,7 +1076,7 @@ def _open_loop(sched, reqs, due, clients: int) -> dict:
     from repro_torch.launch.resilience import RequestRejected
 
     n = len(reqs)
-    lag, submit_ms, futs = [None] * n, [None] * n, [None] * n
+    lag, submit_ms, futs, submitted = [None] * n, [None] * n, [None] * n, [None] * n
     t0 = time.perf_counter()
 
     def client(i):
@@ -999,7 +1086,8 @@ def _open_loop(sched, reqs, due, clients: int) -> dict:
             futs[i] = sched.submit(*reqs[i])
         except RequestRejected:
             return
-        submit_ms[i] = (time.perf_counter() - start) * 1e3
+        submitted[i] = time.perf_counter()
+        submit_ms[i] = (submitted[i] - start) * 1e3
 
     with ThreadPoolExecutor(clients) as pool:
         jobs = []
@@ -1016,17 +1104,17 @@ def _open_loop(sched, reqs, due, clients: int) -> dict:
         "wall_s": time.perf_counter() - first,
         "lag_s": lag,
         "submit_ms": [x for x in submit_ms if x is not None],
+        "submit_ms_by_request": submit_ms,
+        "submitted_at": submitted,
         "outs": outs,
     }
 
 
-def _sched_rate(server, kernel, frac: float, pooled_fps: float, seed: int) -> dict:
-    """Open-loop load at ``frac`` of the pooled rung's frames/s: seeded
-    Poisson arrivals of ``SCHED_REQUESTS`` 1024-frame single-stream
-    requests, tenants uniform, every third request repeating the previous
-    one's clip."""
-    from repro_torch.launch.serve import MicrobatchScheduler
-
+def _sched_requests(frac: float, pooled_fps: float, seed: int):
+    """Seeded Poisson arrivals at ``frac`` of the pooled rung's frames/s:
+    ``SCHED_REQUESTS`` 1024-frame single-stream requests, tenants
+    uniform, every third request repeating the previous one's clip.
+    Returns the requests, their due times (s) and the rate (req/s)."""
     gen = np.random.default_rng([seed, int(frac * 100)])
     rate = frac * pooled_fps / SCHED_FRAMES  # requests per second
     due = np.cumsum(gen.exponential(1.0 / rate, SCHED_REQUESTS))
@@ -1039,6 +1127,15 @@ def _sched_rate(server, kernel, frac: float, pooled_fps: float, seed: int) -> di
         else:
             clip = gen.random((1, 1, 60, 80, SCHED_FRAMES), dtype=np.float32)
         reqs.append((tenant, clip))
+    return reqs, due, rate
+
+
+def _sched_rate(server, kernel, frac: float, pooled_fps: float, seed: int) -> dict:
+    """Open-loop load at ``frac`` of the pooled rung's frames/s
+    (``_sched_requests``); every future must resolve."""
+    from repro_torch.launch.serve import MicrobatchScheduler
+
+    reqs, due, rate = _sched_requests(frac, pooled_fps, seed)
     kernel.reset_launches()
     with MicrobatchScheduler(server, max_queue=64, max_batch=6, batch_wait_s=0.005) as sched:
         run = _open_loop(sched, reqs, due, SCHED_CLIENTS)
@@ -1096,6 +1193,73 @@ def _sched_rate(server, kernel, frac: float, pooled_fps: float, seed: int) -> di
         f"lag behind schedule median {row['lag_ms_median']:.2f} ms max {row['lag_ms_max']:.2f} ms; "
         f"launches {launches}; scores vs alone max rel {rel:.3g}"
     )
+    return row
+
+
+def _sched_profile(server, pooled_fps: float, seed: int) -> dict:
+    """One ``torch.profiler`` capture of the 0.9x replay: where a
+    scheduled request's time goes.  Per request, on the host clock: SHA-1
+    and enqueue at submit (in the client thread), the queue wait from the
+    end of submit to the start of its batch's server call, and that call's
+    wall time; per batch, the device busy ms of the profiler's kernels.
+    The profiler's own cost inflates the host parts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import MicrobatchScheduler
+
+    reqs, due, _ = _sched_requests(SCHED_PROFILE_RATE, pooled_fps, seed)
+    search_batch = server.search_batch
+
+    def timed(requests, **kw):  # stamps each result with its batch call
+        t0 = time.perf_counter()
+        outs = search_batch(requests, **kw)
+        t1 = time.perf_counter()
+        for o in outs:
+            if isinstance(o, dict):
+                o["batch_call_s"] = (t0, t1)
+        return outs
+
+    server.search_batch = timed
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with MicrobatchScheduler(server, max_queue=64, max_batch=6, batch_wait_s=0.005) as sched:
+                run = _open_loop(sched, reqs, due, SCHED_CLIENTS)
+                m = sched.metrics()
+            torch.cuda.synchronize()
+    finally:
+        del server.search_batch  # the class's method again
+    served = [i for i, o in enumerate(run["outs"]) if o is not None]
+    sha1 = np.array([run["submit_ms_by_request"][i] for i in served])
+    wait = np.array([(run["outs"][i]["batch_call_s"][0] - run["submitted_at"][i]) * 1e3 for i in served])
+    call = np.array([(run["outs"][i]["batch_call_s"][1] - run["outs"][i]["batch_call_s"][0]) * 1e3
+                     for i in served])
+    total = np.array([run["outs"][i]["queue_latency_s"] * 1e3 for i in served]) + sha1
+    dev = _device_time(prof, run["wall_s"] * 1e3, 1)
+    per_batch = dev["device_ms"] / m["batches"] if dev["device_ms"] else None
+    row = {
+        "rate_frac": SCHED_PROFILE_RATE,
+        "served": len(served),
+        "batches": m["batches"],
+        "sha1_submit_ms": {"median": float(np.median(sha1)), "mean": float(sha1.mean())},
+        "queue_wait_ms": {"median": float(np.median(wait)), "mean": float(wait.mean())},
+        "batch_call_ms": {"median": float(np.median(call)), "mean": float(call.mean())},
+        "request_total_ms": {"median": float(np.median(total)), "p99": float(np.percentile(total, 99))},
+        "device_busy_ms_per_batch": per_batch,
+        "device_busy_share": dev["busy_share"],
+        "top_kernels_ms": dev["top_kernels_ms"],
+    }
+    busy = "not measured" if per_batch is None else f"{per_batch:.2f} ms per batch ({dev['busy_share']:.1%} of the replay)"
+    print(
+        f"sched: profile {SCHED_PROFILE_RATE}x ({len(served)} requests, {m['batches']} batches, under "
+        f"torch.profiler): per request median SHA-1 + enqueue at submit {row['sha1_submit_ms']['median']:.2f} "
+        f"ms, queue wait {row['queue_wait_ms']['median']:.2f} ms, batch call "
+        f"{row['batch_call_ms']['median']:.2f} ms, submit to result {row['request_total_ms']['median']:.2f} "
+        f"ms (p99 {row['request_total_ms']['p99']:.2f}); device busy {busy}; kernels below: device ms "
+        f"summed over the replay"
+    )
+    for kname, ms in dev["top_kernels_ms"]:
+        print(f"profile:   {ms:9.3f} ms  {kname}")
     return row
 
 
@@ -1289,10 +1453,445 @@ def phase_sched(kernel, seed: int, pooled_fps: float) -> dict:
     warm = [(t, gen.random((1, 1, 60, 80, SCHED_FRAMES), dtype=np.float32)) for t in "ABCD"]
     _warm(server, warm, rows=6)
     report = {"rates": [_sched_rate(server, kernel, f, pooled_fps, seed) for f in SCHED_RATES]}
+    report["profile"] = _sched_profile(server, pooled_fps, seed)
     report["storm"] = _storm(tenants, kernel)
     report["breaker"] = _breaker(server, kernel, seed)
     report["seconds"] = time.perf_counter() - t0
     print(f"sched: phase {report['seconds']:.1f} s")
+    return report
+
+
+def _replica_server():
+    """One replica's paper-geometry server (as ``_server``, tenants added
+    by the replica set)."""
+    from repro_torch.launch.serve import VideoSearchConfig, VideoSearchServer
+
+    return VideoSearchServer(
+        frame_hw=(60, 80),
+        cfg=VideoSearchConfig(window_frames=64, chunk_windows=4, use_pallas=True),
+    )
+
+
+def _replica_set(tenants, clips, n_replicas: int, **kw):
+    """A ``ReplicaSet`` of paper-geometry replicas holding the four
+    tenants.  Each replica's server is built, recorded and warmed at every
+    batch size its scheduler can form, on both rungs, before the set
+    starts its heartbeats, so building cuFFT plans never looks like a
+    dead replica; the set's ``add_tenant`` then hits each server's
+    grating cache.  A server the set builds later (a warm restart) is a
+    fresh one."""
+    from repro_torch.launch.replica import HedgePolicy, ReplicaSet
+
+    ready = []
+    for _ in range(n_replicas):
+        server = _replica_server()
+        for name, k, pipe in tenants:
+            server.add_tenant(name, k, fidelity=pipe)
+        _warm(server, [(t, clips[i % len(clips)]) for i, t in enumerate("ABCD")], REPLICA_WARM_ROWS)
+        ready.append(server)
+    kw.setdefault("hedge", HedgePolicy(enabled=False))
+    kw.setdefault("default_deadline_s", 120.0)
+    rs = ReplicaSet(lambda: ready.pop(0) if ready else _replica_server(), n_replicas=n_replicas, **kw)
+    for name, k, pipe in tenants:
+        rs.add_tenant(name, k, fidelity=pipe)
+    return rs
+
+
+def _sequential_dispatches(rs) -> int:
+    with rs._lock:
+        replicas = list(rs._replicas.values())
+    return sum(r.server.metrics()["sequential_dispatches"] for r in replicas)
+
+
+def _replica_gather(futs) -> tuple[list, dict]:
+    """Every future's outcome within ``SCHED_RESULT_TIMEOUT_S``: the
+    result, or None for a typed ServingError or a future that never
+    resolved (counted apart)."""
+    from concurrent.futures import TimeoutError as FutureTimeoutError
+
+    from repro_torch.launch.resilience import ServingError
+
+    outs, counts = [], {"ok": 0, "typed": 0, "unresolved": 0}
+    for f in futs:
+        try:
+            outs.append(f.result(timeout=SCHED_RESULT_TIMEOUT_S))
+            counts["ok"] += 1
+        except ServingError:
+            outs.append(None)
+            counts["typed"] += 1
+        except FutureTimeoutError:
+            outs.append(None)
+            counts["unresolved"] += 1
+    return outs, counts
+
+
+def _replica_report(tag, rs, kernel, seq_before: int, touched: set, extra: dict) -> dict:
+    """Counters, latency percentiles, spurious deaths (members dead at the
+    end that were never killed or stalled) and the replay's B1/B2/B3
+    launches; B2 and B3 must have launched (the pooled rung), B1 exactly
+    when a sequential (degraded) batch ran."""
+    from repro_torch.distributed.fault import DEAD
+
+    m = rs.metrics()
+    launches = _launch_counts(kernel)
+    sequential = _sequential_dispatches(rs) - seq_before
+    spurious = sorted(n for n, st in m["states"].items() if st == DEAD and n not in touched)
+    for k in ("spectral_mac_grouped", "topk_readout"):
+        if launches[k] <= 0:
+            raise AssertionError(f"replica {tag}: kernel {k} was not launched")
+    if (launches["spectral_mac"] > 0) != (sequential > 0):
+        raise AssertionError(f"replica {tag}: B1 launched {launches['spectral_mac']} times for "
+                             f"{sequential} sequential batches")
+    row = {
+        **extra,
+        **{k: m[k] for k in ("submitted", "completed", "failed", "failovers", "rescued", "hedges",
+                             "hedge_wins", "unroutable", "flaps", "deaths", "lost_futures",
+                             "latency_p50_ms", "latency_p90_ms", "latency_p99_ms")},
+        "spurious_deaths": spurious,
+        "sequential_batches": sequential,
+        "launches": launches,
+        "states": m["states"],
+    }
+    print(
+        f"replica: {tag}: failovers {m['failovers']}, rescued {m['rescued']}, hedges {m['hedges']}, "
+        f"wins {m['hedge_wins']}, flaps {m['flaps']}, deaths {m['deaths']}, spurious deaths "
+        f"{len(spurious)} {spurious}, lost {m['lost_futures']}; latency p50 {m['latency_p50_ms']:.2f} "
+        f"p90 {m['latency_p90_ms']:.2f} p99 {m['latency_p99_ms']:.2f} ms; launches {launches} "
+        f"(sequential batches {sequential})"
+    )
+    return row
+
+
+def _replica_storm(tenants, clips, kernel, tmp: str) -> dict:
+    """benchmarks/chaos.py's ``_replica_storm``: 3 replicas, 60 requests
+    over the four tenants, a 50 ms dispatch latency on r1, r1 killed after
+    request 20, hedging after a cold 0.25 s; then r1 warm-restarted from
+    the manifest on disk, admitted by the bitwise probe (all four
+    tenants), and held bitwise against a survivor."""
+    from repro_torch.distributed.fault import ChaosInjector, ChaosRule
+    from repro_torch.launch.replica import HedgePolicy
+
+    n = REPLICA_STORM_REQUESTS
+    rs = _replica_set(
+        tenants, clips, 3, ckpt_dir=os.path.join(tmp, "manifest"),
+        hedge=HedgePolicy(enabled=True, cold_delay_s=0.25, min_samples=10**9),
+    )
+    try:
+        rs._replicas["r1"].server.chaos = ChaosInjector(
+            [ChaosRule("dispatch", "latency", rate=1.0, delay_s=0.05)], seed=2
+        )
+        reqs = [("ABCD"[i % 4], clips[i % 3]) for i in range(n)]
+        kernel.reset_launches()
+        seq0 = _sequential_dispatches(rs)
+        t0 = time.perf_counter()
+        futs, at_kill = [], None
+        for i, (t, c) in enumerate(reqs):
+            futs.append(rs.submit(t, c, block=True))
+            if i == n // 3:
+                at_kill = rs._replicas["r1"].metrics()  # what the kill catches
+                rs.kill_replica("r1")
+            time.sleep(0.001)
+        outs, counts = _replica_gather(futs)
+        elapsed = time.perf_counter() - t0
+        availability = 100.0 * counts["ok"] / n
+        resolution = 100.0 * (counts["ok"] + counts["typed"]) / n
+        row = _replica_report("storm", rs, kernel, seq0, {"r1"}, {
+            "requests": n, **counts, "availability_pct": availability,
+            "resolution_pct": resolution, "elapsed_s": elapsed,
+        })
+        survivor = rs._replicas["r0"]
+        rel = max(_check_alone(survivor.server, reqs[i], o, f"replica storm request {i}")
+                  for i, o in enumerate(outs) if o is not None)
+        t_replace = time.perf_counter()
+        replacement = rs.replace_replica("r1")  # the bitwise probe, all four tenants
+        replace_s = time.perf_counter() - t_replace
+        bitwise = {}
+        for t in "ABCD":
+            want = survivor.submit(t, clips[1], block=True).result(timeout=SCHED_RESULT_TIMEOUT_S)
+            got = replacement.submit(t, clips[1], block=True).result(timeout=SCHED_RESULT_TIMEOUT_S)
+            bitwise[t] = bool(np.array_equal(want["scores"].view(np.int32), got["scores"].view(np.int32))
+                              and np.array_equal(want["peak_frame"], got["peak_frame"]))
+        row["batch_dependence"] = _batch_dependence(survivor.server, clips)
+    finally:
+        rs.close()
+    row |= {"max_rel_vs_alone": rel, "replace_s": replace_s, "warm_restart_bitwise": bitwise,
+            "r1_outstanding_at_kill": at_kill["outstanding"], "r1_queue_at_kill": at_kill["queue_depth"]}
+    print(
+        f"replica: storm {n} x {REPLICA_FRAMES} frames, 3 replicas, r1 killed after request {n // 3} "
+        f"with {at_kill['outstanding']} attempts outstanding ({at_kill['queue_depth']} queued): "
+        f"{counts['ok']} ok / {counts['typed']} typed / {counts['unresolved']} unresolved, "
+        f"availability {availability:.1f}%, resolution {resolution:.1f}%, {elapsed:.2f} s; results vs "
+        f"alone max rel {rel:.3g}; r1 replaced from the manifest in {replace_s:.2f} s (probe passed "
+        f"for A-D), replacement bitwise a survivor's: {bitwise}"
+    )
+    if counts["unresolved"] or resolution != 100.0 or row["lost_futures"]:
+        raise AssertionError(f"replica storm: {counts}, lost {row['lost_futures']}")
+    if availability < REPLICA_AVAILABILITY_MIN:
+        raise AssertionError(f"replica storm: availability {availability:.1f}% < 95%")
+    if not all(bitwise.values()):
+        raise AssertionError(f"replica storm: warm-restarted replica diverged: {bitwise}")
+    return row
+
+
+def _batch_dependence(server, clips) -> dict:
+    """Whether one request's scores depend on the batch it lands in: the
+    request alone on the pooled rung against the same request with 1, 3
+    and 5 other distinct clips in the batch (cuFFT's batch grows), on the
+    sequential rung alone, and stacked with a second stream of its
+    tenant there.  Bitwise; reported, not gated."""
+    req = ("A", clips[0])
+    alone = server.search_batch([req])[0]["scores"]
+
+    def same(out):
+        return bool(np.array_equal(out["scores"].view(np.int32), alone.view(np.int32)))
+
+    out = {}
+    for rows in (2, 4, 6):
+        others = [("ABCD"[j % 4], clips[1 + j % 2] + np.float32(j + 1)) for j in range(rows - 1)]
+        out[f"pooled_{rows}_rows"] = same(server.search_batch([req] + others)[0])
+    out["sequential_alone"] = same(server.search_batch([req], pooled=False)[0])
+    out["sequential_stacked_2"] = same(server.search_batch([req, ("A", clips[1])], pooled=False)[0])
+    print(f"replica: batch dependence of one request's scores (bitwise equal to it alone on the pooled "
+          f"rung): {out}")
+    return out
+
+
+def _replica_hedge(tenants, clips, kernel) -> dict:
+    """benchmarks/chaos.py's ``_replica_hedge``: 2 replicas, r0 a
+    straggler, 40 sequential searches with hedging off, then on.  The
+    reference's 60 ms straggle and 15 ms hedge delay keep their 4 : 1
+    ratio on the card: straggle max(60 ms, 4 m), m the median latency of
+    one warm request alone on one replica; hedge delay a quarter of it."""
+    from repro_torch.distributed.fault import ChaosInjector, ChaosRule
+    from repro_torch.launch.replica import HedgePolicy
+
+    n = REPLICA_HEDGE_REQUESTS
+    p99, rows, alone_ms = {}, {}, None
+    for hedged in (False, True):
+        straggle = None if alone_ms is None else max(0.06, 4 * alone_ms / 1e3)
+        hedge = HedgePolicy(enabled=hedged, cold_delay_s=(straggle or 0.06) / 4, min_samples=10**9)
+        rs = _replica_set(tenants, clips, 2, hedge=hedge, poll_interval_s=0.003)
+        try:
+            if alone_ms is None:
+                lat = []
+                for i in range(7):
+                    t0 = time.perf_counter()
+                    rs._replicas["r1"].submit("ABCD"[i % 4], clips[i % 3], block=True).result(
+                        timeout=SCHED_RESULT_TIMEOUT_S)
+                    lat.append(time.perf_counter() - t0)
+                alone_ms = float(np.median(lat)) * 1e3
+                straggle = max(0.06, 4 * alone_ms / 1e3)
+                print(f"replica: hedge: one warm request alone on one replica, median {alone_ms:.2f} ms "
+                      f"(n=7): straggle {straggle * 1e3:.2f} ms, hedge delay {straggle * 250:.2f} ms")
+            rs._replicas["r0"].server.chaos = ChaosInjector(
+                [ChaosRule("dispatch", "latency", rate=1.0, delay_s=straggle)], seed=3
+            )
+            kernel.reset_launches()
+            seq0 = _sequential_dispatches(rs)
+            lats = []
+            for i in range(n):
+                t0 = time.perf_counter()
+                rs.search("ABCD"[i % 4], clips[i % 3])
+                lats.append(time.perf_counter() - t0)
+            lats.sort()
+            p99[hedged] = 1e3 * lats[min(int(0.99 * len(lats)), len(lats) - 1)]
+            tag = "hedge on" if hedged else "hedge off"
+            rows[tag] = _replica_report(tag, rs, kernel, seq0, set(), {
+                "requests": n, "p99_search_ms": p99[hedged], "straggle_ms": straggle * 1e3,
+                "hedge_delay_ms": hedge.cold_delay_s * 1e3,
+            })
+        finally:
+            rs.close()
+    ratio = p99[False] / max(p99[True], 1e-9)
+    on = rows["hedge on"]
+    print(f"replica: hedge: {n} searches, p99 {p99[False]:.2f} ms unhedged -> {p99[True]:.2f} ms hedged "
+          f"(ratio {ratio:.2f}), {on['hedges']} hedges, {on['hedge_wins']} wins")
+    if not (on["hedges"] > 0 and on["hedge_wins"] > 0):
+        raise AssertionError(f"replica hedge: hedges {on['hedges']}, wins {on['hedge_wins']}")
+    return {"alone_ms": alone_ms, "p99_unhedged_ms": p99[False], "p99_hedged_ms": p99[True],
+            "p99_ratio": ratio, **rows}
+
+
+def _replica_flap(tenants, clips, kernel) -> dict:
+    """benchmarks/chaos.py's ``_replica_flap``: 2 replicas under the
+    reference's thresholds (suspect 0.03 s, dead 0.06 s, beats every
+    5 ms, polls every 3 ms), r0's heartbeats stalled for 40 ms (every
+    third time 80 ms) and revived in a loop while 48 requests arrive
+    10 ms apart."""
+    n = REPLICA_FLAP_REQUESTS
+    rs = _replica_set(tenants, clips, 2, suspect_after_s=0.03, dead_after_s=0.06,
+                      heartbeat_interval_s=0.005, poll_interval_s=0.003)
+    stop = threading.Event()
+
+    def flapper():
+        k = 0
+        while not stop.is_set():
+            rs.stall_replica("r0")
+            time.sleep(0.08 if k % 3 == 2 else 0.04)
+            rs.revive_replica("r0")
+            k += 1
+            time.sleep(0.01)
+
+    churn = ThreadPoolExecutor(1)
+    try:
+        kernel.reset_launches()
+        seq0 = _sequential_dispatches(rs)
+        job = churn.submit(flapper)
+        futs = []
+        for i in range(n):
+            futs.append(rs.submit("ABCD"[i % 4], clips[i % 3], block=True))
+            time.sleep(0.01)
+        outs, counts = _replica_gather(futs)
+        stop.set()
+        job.result(timeout=60)
+        resolution = 100.0 * (counts["ok"] + counts["typed"]) / n
+        row = _replica_report("flap", rs, kernel, seq0, {"r0"}, {
+            "requests": n, **counts, "resolution_pct": resolution,
+            "availability_pct": 100.0 * counts["ok"] / n,
+        })
+    finally:
+        stop.set()
+        churn.shutdown()
+        rs.close()
+    print(f"replica: flap {n} requests under stall/revive churn: {counts['ok']} ok / {counts['typed']} "
+          f"typed / {counts['unresolved']} unresolved, resolution {resolution:.1f}%")
+    if counts["unresolved"] or resolution != 100.0 or row["lost_futures"]:
+        raise AssertionError(f"replica flap: {counts}, lost {row['lost_futures']}")
+    if row["flaps"] + row["deaths"] <= 0:
+        raise AssertionError("replica flap: the churn never produced a flap or a death")
+    return row
+
+
+def phase_replica(kernel, seed: int) -> dict:
+    """The replicated video search on the card: benchmarks/chaos.py's
+    three replica rows (storm, hedge, flap) at their request counts, on
+    paper-geometry replicas holding the four tenants, 1024-frame clips."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tenants = _tenants(np.random.RandomState(seed))
+    gen = np.random.default_rng([seed, 3])
+    clips = [gen.random((1, 1, 60, 80, REPLICA_FRAMES), dtype=np.float32) for _ in range(3)]
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        report["storm"] = _replica_storm(tenants, clips, kernel, tmp)
+    report["hedge"] = _replica_hedge(tenants, clips, kernel)
+    report["flap"] = _replica_flap(tenants, clips, kernel)
+    torch.cuda.synchronize()
+    report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    report["seconds"] = time.perf_counter() - t0
+    print(f"replica: phase {report['seconds']:.1f} s, peak device memory "
+          f"{report['peak_device_bytes'] / 2**20:.1f} MiB")
+    return report
+
+
+def _map_leaves(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn) for v in tree)
+    return fn(tree)
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        words = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(words), b.view(words))
+    return torch.equal(a, b)
+
+
+def phase_ckpt(seed: int) -> dict:
+    """Checkpoints of mamba2-370m's parameters (bf16, built on the card by
+    the port's init) and a small float32 / int64 tree through
+    ``CheckpointManager(async_save=True, keep=2)``: the synchronous
+    snapshot ms, the write seconds (``wait()``) and the restore seconds
+    onto the card; the restore must be bitwise, and a ``ckpt_write`` fault
+    on a third save must surface on ``wait()`` and leave the second
+    intact."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager, latest_step
+    from repro_torch.distributed.fault import ChaosInjector, ChaosRule, InjectedFault
+    from repro_torch.models import mamba2
+
+    cfg = configs.get_config("mamba2-370m")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    params = mamba2.init_params(cfg, gen, device="cuda").state_dict()
+    small = {
+        "f32": torch.randn((64, 33), generator=gen, device="cuda"),
+        "i64": [torch.arange(10, device="cuda"), {"step": torch.zeros((), dtype=torch.int64, device="cuda")}],
+    }
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    dtypes = sorted({str(t.dtype).removeprefix("torch.") for t in params.values()})
+    report = {"param_leaves": len(params), "param_bytes": nbytes, "param_dtypes": dtypes}
+
+    def trees():
+        return {"params": params, "small": small}
+
+    def restore_onto_card():
+        step, host = mgr.restore_latest(trees())
+        return step, {name: _map_leaves(tree, lambda t: t.to("cuda")) for name, tree in host.items()}
+
+    def check(restored, step):
+        bad = [k for k, v in params.items() if not _same_bits(restored["params"][k], v)]
+        got = restored["small"]
+        pairs = [(got["f32"], small["f32"]), (got["i64"][0], small["i64"][0]),
+                 (got["i64"][1]["step"], torch.tensor(step, device="cuda"))]
+        bad += [f"small/{i}" for i, (g, w) in enumerate(pairs) if not _same_bits(g, w)]
+        if bad:
+            raise AssertionError(f"ckpt: step {step} restored with different bits in {bad[:5]}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        free = shutil.disk_usage(tmp).free
+        report["free_bytes"] = free
+        print(f"ckpt: {tmp}: {free / 2**30:.1f} GiB free; mamba2-370m params {len(params)} leaves, "
+              f"{nbytes / 2**30:.3f} GiB {dtypes}, plus a float32 / int64 tree")
+        mgr = CheckpointManager(ckpt_dir, keep=2, async_save=True)
+        snap_ms, write_s = [], []
+        for step in (1, 2):
+            small["i64"][1]["step"].fill_(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(step, trees(), extra={"model": "mamba2-370m"})
+            snap_ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            mgr.wait()
+            write_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        step, restored = restore_onto_card()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(restored, step)
+        if step != 2:
+            raise AssertionError(f"ckpt: latest step {step}, not 2")
+        print(f"ckpt: snapshot (synchronous, device to host) {snap_ms[0]:.1f} / {snap_ms[1]:.1f} ms, "
+              f"write (wait) {write_s[0]:.2f} / {write_s[1]:.2f} s, restore of step 2 onto the card "
+              f"{restore_s:.2f} s; bitwise equal to the originals (bf16 included)")
+        # an injected crash in the third save's first payload write
+        mgr.chaos = ChaosInjector([ChaosRule("ckpt_write", "raise", at=(1,))])
+        small["i64"][1]["step"].fill_(3)
+        mgr.save(3, trees())
+        try:
+            mgr.wait()
+            surfaced = False
+        except InjectedFault:
+            surfaced = True
+        latest = latest_step(ckpt_dir)
+        if not surfaced or latest != 2:
+            raise AssertionError(f"ckpt: injected write fault surfaced {surfaced}, latest step {latest}")
+        mgr.chaos = None
+        _, restored = restore_onto_card()
+        check(restored, 2)
+        print("ckpt: a ckpt_write fault in save 3 surfaced on wait(); latest_step is 2 and its bytes "
+              "restore intact")
+    report |= {"snapshot_ms": snap_ms, "write_s": write_s, "restore_s": restore_s,
+               "fault_surfaced": surfaced}
     return report
 
 
@@ -2302,6 +2901,10 @@ def main() -> int:
     rows += classify_rows
     report["train"], train_rows = phase_train(args.seed, kernel)
     rows += train_rows
+    # last, so the phases before them run in the process state they ran
+    # in before these two existed
+    report["replica"] = phase_replica(kernel, args.seed)
+    report["ckpt"] = phase_ckpt(args.seed)
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

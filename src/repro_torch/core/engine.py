@@ -70,6 +70,24 @@ def as_tensor(x, device, dtype: torch.dtype = torch.float32) -> Tensor:
     return torch.as_tensor(x).to(device=device, dtype=dtype)
 
 
+def staged_to_device(x, device) -> Tensor:
+    """A numpy or CPU clip as a float32 tensor on ``device``, staged on the
+    card through pinned memory: each call takes its own buffer from
+    PyTorch's caching host allocator and copies it with
+    ``non_blocking=True`` on the current stream.  The allocator records
+    the copy's event and hands the buffer out again only once the copy has
+    ended, so concurrent callers share no buffer and none is rewritten
+    while a copy reads it.  A clip already on the device, or a device
+    that is the host, goes through ``as_tensor``."""
+    host = isinstance(x, np.ndarray) or (isinstance(x, Tensor) and x.device.type == "cpu")
+    if not host or torch.device(device).type != "cuda":
+        return as_tensor(x, device)
+    src = as_tensor(x, "cpu")
+    staged = torch.empty(src.shape, dtype=torch.float32, pin_memory=True)
+    staged.copy_(src)
+    return staged.to(device, non_blocking=True)
+
+
 def host_stream(x, device) -> Tensor:
     """A stream as a float32 tensor where it lives: a numpy array or a
     CPU tensor stays on the host (without a copy when it is float32

@@ -1,2 +1,3 @@
-"""Fault tolerance of the port: the seeded chaos injector that storms the
-serving seams (``fault``)."""
+"""Fault tolerance of the port (``fault``): the seeded chaos injector that
+storms the serving seams, the restart loop, deterministic shard
+reassignment and heartbeat membership."""

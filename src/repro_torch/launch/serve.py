@@ -77,11 +77,11 @@ from repro_torch.core import spectral_conv
 from repro_torch.core.engine import (
     TOPK_EMPTY_IDX,
     GratingCache,
-    as_tensor,
     clip_key,
     clip_keys_for,
     host_stream,
     stack_streams,
+    staged_to_device,
 )
 from repro_torch.core.fidelity import FidelityPipeline
 from repro_torch.core.sthc import STHC, STHCConfig
@@ -477,15 +477,16 @@ class VideoSearchServer:
         # one composition
         order = sorted(groups.items(), key=lambda kv: (kv[0][0], str(kv[0][1:])))
         tens = [tenants[key[0]] for key, _ in order]
-        # each distinct clip object crosses to the device once; a stream
-        # that goes through the cursor stays on the host, and the engine
-        # moves it one segment at a time
+        # each distinct clip object crosses to the device once, a host
+        # clip through pinned staging; a stream that goes through the
+        # cursor stays on the host, and the engine moves it one segment
+        # at a time
         on_device: dict[int, torch.Tensor] = {}
 
         def dev(clip):
             t = on_device.get(id(clip))
             if t is None:
-                t = on_device[id(clip)] = as_tensor(clip, self.device)
+                t = on_device[id(clip)] = staged_to_device(clip, self.device)
             return t
 
         def stack(idxs, ten):
@@ -757,7 +758,11 @@ class MicrobatchScheduler:
 
     The batcher thread launches on its own current CUDA stream — the
     default stream, the same one the caller's thread uses unless it set
-    another — so its kernels and copies are ordered as any caller's.
+    another — so its kernels and copies are ordered as any caller's.  It
+    runs with the intra-op thread count of the thread that built the
+    scheduler: on the CPU, MKL's FFT rounds by its thread count, which
+    ``torch.set_num_threads`` sets for the calling thread alone, so a
+    request's scores would otherwise depend on the thread serving it.
     Use as a context manager or call :meth:`close`.
     """
 
@@ -810,6 +815,7 @@ class MicrobatchScheduler:
         # that inside _dispatch, and a submitter blocked on a full
         # queue while holding it would deadlock the drain.
         self._intake_lock = threading.Lock()
+        self._num_threads = torch.get_num_threads()
         self._closed = threading.Event()
         self._thread = threading.Thread(
             target=self._run, name="sthc-microbatcher", daemon=True
@@ -896,6 +902,7 @@ class MicrobatchScheduler:
             return None
 
     def _run(self) -> None:
+        torch.set_num_threads(self._num_threads)
         while True:
             if self._closed.is_set():
                 # exit promptly: anything still queued/stashed is failed

@@ -214,7 +214,8 @@ new = ("repro_torch.kernels.conv3d.kernel", "repro_torch.kernels.conv3d.ops",
        "repro_torch.kernels.conv3d.ref", "repro_torch.data.kth_synthetic",
        "repro_torch.core.hybrid", "repro_torch.distributed.fault",
        "repro_torch.optim.adamw", "repro_torch.optim.schedule",
-       "repro_torch.optim.compression", "repro_torch.launch.train_hybrid")
+       "repro_torch.optim.compression", "repro_torch.launch.train_hybrid",
+       "repro_torch.checkpoint.checkpoint", "repro_torch.launch.replica")
 assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
 print("isolated", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
