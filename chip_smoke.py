@@ -205,8 +205,13 @@ Phases, each reported on lines of its own:
              prints failovers, rescues, hedges, wins, flaps, deaths,
              spurious deaths (members that died unkilled and unstalled),
              p50/p90/p99 and its B1/B2/B3 launches (B2 and B3 must run,
-             B1 exactly when a sequential batch ran); then the phase's
-             seconds and peak device memory.
+             B1 exactly when a sequential batch ran).  Mesh: 2 replicas,
+             each on its own (1, 2) logical mesh of the card, r0 killed
+             after 8 of 24 requests: every future a result, 0 lost, every
+             result bitwise the single-device server's answer to it; r0
+             warm-restarted owns a new LocalMesh and answers the four
+             tenants bitwise as the single-device server.  Then the
+             phase's seconds and peak device memory.
 10. ckpt   — mamba2-370m's parameters (bf16, built on the card by the
              port's init) and a small float32 / int64 tree through
              ``CheckpointManager(async_save=True, keep=2)`` in a
@@ -214,6 +219,27 @@ Phases, each reported on lines of its own:
              write s, restore s onto the card, the restore bitwise; a
              ckpt_write fault on a third save must surface on ``wait()``
              with the second save the latest and intact.
+11. mesh   — the serve phase's tenants and six requests on a server
+             with fused readout at K = 3: on one device, then with
+             ``mesh_shape`` (1, 1) on the default devices (the card) and
+             (1, 2), (2, 1), (2, 2) and (1, 4) as logical meshes over
+             ``mesh_devices=("cuda:0",) * n`` (the shards run in turn).
+             benchmarks/mesh.py's five exactness rows, each bitwise the
+             single-device server's answers: the stitched volumes, the
+             fused top-3, every tenant on one shared clip (and dedup on
+             == off), 4096-frame cursor streams (max_buffer_windows 8)
+             and bf16 gratings.  ``metrics()["mesh"]`` must give each
+             shape; per call B1 must not launch and B2 and B3 must launch
+             data x model times the single device's count.  Printed per
+             shape: batch latency (median of 7), peak device memory, the
+             B2 / B3 / cuFFT device ms of one profiled call, the arena
+             bytes one device holds, and benchmarks/mesh.py's
+             per_device_work_x and arena_x (from the pool groups the
+             server dispatched), beside the card's name and power limit.
+             B2 on the inputs a shard launched it with, the (1, 2)
+             mesh's widest shard and a (1, 4) shard whose tile is all
+             zero (zero offsets both), is held bitwise against its plain
+             version and timed (two ``kernel:`` rows).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -1461,18 +1487,18 @@ def phase_sched(kernel, seed: int, pooled_fps: float) -> dict:
     return report
 
 
-def _replica_server():
+def _replica_server(**cfg):
     """One replica's paper-geometry server (as ``_server``, tenants added
     by the replica set)."""
     from repro_torch.launch.serve import VideoSearchConfig, VideoSearchServer
 
     return VideoSearchServer(
         frame_hw=(60, 80),
-        cfg=VideoSearchConfig(window_frames=64, chunk_windows=4, use_pallas=True),
+        cfg=VideoSearchConfig(window_frames=64, chunk_windows=4, use_pallas=True, **cfg),
     )
 
 
-def _replica_set(tenants, clips, n_replicas: int, **kw):
+def _replica_set(tenants, clips, n_replicas: int, server_cfg=None, **kw):
     """A ``ReplicaSet`` of paper-geometry replicas holding the four
     tenants.  Each replica's server is built, recorded and warmed at every
     batch size its scheduler can form, on both rungs, before the set
@@ -1482,16 +1508,18 @@ def _replica_set(tenants, clips, n_replicas: int, **kw):
     fresh one."""
     from repro_torch.launch.replica import HedgePolicy, ReplicaSet
 
+    server_cfg = server_cfg or {}
     ready = []
     for _ in range(n_replicas):
-        server = _replica_server()
+        server = _replica_server(**server_cfg)
         for name, k, pipe in tenants:
             server.add_tenant(name, k, fidelity=pipe)
         _warm(server, [(t, clips[i % len(clips)]) for i, t in enumerate("ABCD")], REPLICA_WARM_ROWS)
         ready.append(server)
     kw.setdefault("hedge", HedgePolicy(enabled=False))
     kw.setdefault("default_deadline_s", 120.0)
-    rs = ReplicaSet(lambda: ready.pop(0) if ready else _replica_server(), n_replicas=n_replicas, **kw)
+    rs = ReplicaSet(lambda: ready.pop(0) if ready else _replica_server(**server_cfg),
+                    n_replicas=n_replicas, **kw)
     for name, k, pipe in tenants:
         rs.add_tenant(name, k, fidelity=pipe)
     return rs
@@ -1762,6 +1790,70 @@ def _replica_flap(tenants, clips, kernel) -> dict:
     return row
 
 
+def _replica_mesh(tenants, clips, kernel, tmp: str) -> dict:
+    """Two replicas, each serving on its own (1, 2) logical mesh of the
+    card; r0 killed after a third of 24 requests.  Every future resolves,
+    0 lost, every result bitwise the single-device answer to the same
+    request; r0 warm-restarted from the manifest owns a new mesh, passes
+    the bitwise probe and answers all four tenants bitwise the
+    single-device server's."""
+    from repro_torch.launch.replica import HedgePolicy
+
+    n = 24
+    mesh_cfg = {"mesh_shape": (1, 2), "mesh_devices": ("cuda:0",) * 2}
+    single = _replica_server()
+    for name, k, pipe in tenants:
+        single.add_tenant(name, k, fidelity=pipe)
+    rs = _replica_set(tenants, clips, 2, server_cfg=mesh_cfg, ckpt_dir=os.path.join(tmp, "manifest"),
+                      hedge=HedgePolicy(enabled=False))
+    try:
+        meshes = {name: rs._replicas[name].mesh for name in ("r0", "r1")}
+        reqs = [("ABCD"[i % 4], clips[i % 3]) for i in range(n)]
+        kernel.reset_launches()
+        seq0 = _sequential_dispatches(rs)
+        futs = []
+        for i, (t, c) in enumerate(reqs):
+            futs.append(rs.submit(t, c, block=True))
+            if i == n // 3:
+                rs.kill_replica("r0")
+        outs, counts = _replica_gather(futs)
+        row = _replica_report("mesh (1, 2)", rs, kernel, seq0, {"r0"}, {"requests": n, **counts})
+        alone = {}
+        same = []
+        for (t, c), o in zip(reqs, outs):
+            key = (t, id(c))
+            if key not in alone:
+                alone[key] = single.search_batch([(t, c)])[0]["scores"]
+            same.append(o is not None and np.array_equal(o["scores"].view(np.int32),
+                                                         alone[key].view(np.int32)))
+        replacement = rs.replace_replica("r0")  # the bitwise probe, all four tenants
+        new_mesh = replacement.mesh
+        own = (new_mesh is not None and new_mesh is not meshes["r0"] and new_mesh is not meshes["r1"]
+               and replacement.metrics()["mesh"] == {"data": 1, "model": 2})
+        restart_bitwise = {}
+        for t in "ABCD":
+            got = replacement.submit(t, clips[1], block=True).result(timeout=SCHED_RESULT_TIMEOUT_S)
+            want = single.search_batch([(t, clips[1])])[0]
+            restart_bitwise[t] = bool(np.array_equal(got["scores"].view(np.int32), want["scores"].view(np.int32))
+                                      and np.array_equal(got["peak_frame"], want["peak_frame"]))
+    finally:
+        rs.close()
+    row |= {"bitwise_single_device": sum(same), "replacement_owns_new_mesh": own,
+            "restart_bitwise": restart_bitwise}
+    print(
+        f"replica: mesh (1, 2) x 2 replicas, {n} x {REPLICA_FRAMES} frames, r0 killed after request "
+        f"{n // 3}: {counts['ok']} ok / {counts['typed']} typed / {counts['unresolved']} unresolved, lost "
+        f"{row['lost_futures']}; {sum(same)} of {n} results bitwise the single-device server's; r0 "
+        f"replaced with a new LocalMesh: {own}, bitwise the single-device server for A-D: {restart_bitwise}"
+    )
+    if counts["unresolved"] or counts["typed"] or row["lost_futures"]:
+        raise AssertionError(f"replica mesh: {counts}, lost {row['lost_futures']}")
+    if not all(same) or not own or not all(restart_bitwise.values()):
+        raise AssertionError(f"replica mesh: bitwise {sum(same)}/{n}, own mesh {own}, "
+                             f"restart {restart_bitwise}")
+    return row
+
+
 def phase_replica(kernel, seed: int) -> dict:
     """The replicated video search on the card: benchmarks/chaos.py's
     three replica rows (storm, hedge, flap) at their request counts, on
@@ -1779,6 +1871,8 @@ def phase_replica(kernel, seed: int) -> dict:
         report["storm"] = _replica_storm(tenants, clips, kernel, tmp)
     report["hedge"] = _replica_hedge(tenants, clips, kernel)
     report["flap"] = _replica_flap(tenants, clips, kernel)
+    with tempfile.TemporaryDirectory() as tmp:
+        report["mesh"] = _replica_mesh(tenants, clips, kernel, tmp)
     torch.cuda.synchronize()
     report["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     report["seconds"] = time.perf_counter() - t0
@@ -2868,6 +2962,297 @@ def phase_train(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
     return report, rows
 
 
+MESH_SHAPES = ((1, 1), (1, 2), (2, 1), (2, 2), (1, 4))  # (1, 1) on the default devices
+MESH_CHUNK_FRAMES = 4096  # the chunked row's cursor streams (max_buffer_windows 8)
+MESH_TOPK = 3
+
+
+def _mesh_server(tenants, shape, **cfg):
+    """The paper-geometry server, fused readout at K = 3; on a mesh of
+    ``shape`` when given: (1, 1) on the default devices (the card), the
+    others logical meshes repeating cuda:0."""
+    if shape is not None:
+        cfg["mesh_shape"] = shape
+        if shape != (1, 1):
+            cfg["mesh_devices"] = ("cuda:0",) * (shape[0] * shape[1])
+    return _server(tenants, readout_topk=MESH_TOPK, **cfg)
+
+
+def _same_detections(a: list, b: list) -> bool:
+    """Two batches of answers bitwise equal: scores, peak frames, the K =
+    3 lists and the stitched volumes, whichever the answers hold."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if not (isinstance(x, dict) and isinstance(y, dict) and x.keys() == y.keys()):
+            return False
+        for key in ("scores", "topk_scores"):
+            if key in x and not np.array_equal(x[key].view(np.int32), y[key].view(np.int32)):
+                return False
+        for key in ("peak_frame", "topk_frames"):
+            if key in x and not np.array_equal(x[key], y[key]):
+                return False
+        if "volume" in x and not _bits_equal(x["volume"], y["volume"]):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def _spying(obj, name: str, record):
+    """Within the block, a call to ``obj.<name>`` hands its arguments to
+    ``record`` and then runs the original, which still counts its own
+    launches: a window on what the main path passes, for measurement."""
+    own = name in vars(obj)
+    fn = getattr(obj, name)
+
+    def spy(*args, **kw):
+        record(*args, **kw)
+        return fn(*args, **kw)
+
+    setattr(obj, name, spy)
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, fn)
+        else:
+            delattr(obj, name)
+
+
+def _mesh_watch(srv):
+    """Record what the mesh server's next batch gives the mesh executor
+    and B2: per pool-group dispatch its tiles and physical rows, and per
+    distinct (rows, tile) B2 launch its inputs (the spectra cloned).
+    Returns (context manager, dispatches, launches)."""
+    from repro_torch.kernels.stmul import ops as stmul_ops
+
+    eng = srv.sthc.engine
+    dispatches, launches = [], {}
+
+    def dispatch(mesh, tiles, x, *rest):
+        dispatches.append((tiles, int(x.shape[0])))
+
+    def b2(xhat, pool_re, pool_im, o_start, n_out):
+        B, C = int(xhat.shape[0]), int(xhat.shape[1])
+        key = (B, pool_re.data_ptr(), int(n_out))
+        if key not in launches:
+            rows = int(pool_re.shape[0])
+            launches[key] = {
+                "x": xhat.reshape(B, C, -1).contiguous().clone(),
+                "re": pool_re.reshape(rows, C, -1),
+                "im": pool_im.reshape(rows, C, -1),
+                "offs": [int(o) for o in o_start],
+                "n_out": int(n_out),
+                "zero_tile": not bool(torch.any(pool_re)) and not bool(torch.any(pool_im)),
+            }
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(_spying(eng, "_mesh_dispatch", dispatch))
+    stack.enter_context(_spying(stmul_ops, "spectral_mac_grouped", b2))
+    return stack, dispatches, launches
+
+
+def _mesh_work(srv, dispatches, d: int) -> tuple[float, float, list]:
+    """benchmarks/mesh.py's ``per_device_work_x`` and ``arena_x`` for the
+    batch the server dispatched: per pool group (read from the engine's
+    memoized tiles) its physical rows b, its unsharded arena rows (the
+    members packed by ``_build_pool(members, 1)``, as the reference
+    reckons) and its tile rows; per device a group holds ceil(b / data)
+    rows against one tile."""
+    from repro_torch.core.engine import _build_pool
+
+    eng = srv.sthc.engine
+    with eng._pools_lock:
+        pool_of = {id(tiles): pool for pool, tiles in eng._mesh_arenas.values()}
+    groups = []
+    for tiles, b in dispatches:
+        pool = pool_of[id(tiles)]
+        single = int(_build_pool(list(pool.members), 1).re.shape[0])
+        groups.append({"rows": b, "arena_rows": single, "tile_rows": pool.shard_rows,
+                       "tiles": pool.shards})
+    work = sum(g["rows"] * g["arena_rows"] for g in groups)
+    per_dev = sum(-(-g["rows"] // d) * g["tile_rows"] for g in groups)
+    arena = sum(g["arena_rows"] for g in groups)
+    tile = sum(g["tile_rows"] for g in groups)
+    return work / per_dev, arena / tile, groups
+
+
+def _arena_bytes(server, mesh: bool) -> int:
+    """Arena bytes one device holds: the pools of the server's engine, or
+    the tiles its mesh executor placed on device (0, 0)."""
+    eng = server.sthc.engine
+    with eng._pools_lock:
+        if not mesh:
+            return sum(p.nbytes for key, p in eng._pools.items() if key[1] == 1)
+        return sum(t[0][0][0].nbytes + t[0][0][1].nbytes for _, t in eng._mesh_arenas.values())
+
+
+def _b2_shard_row(kernel, ref, tag: str, cap: dict, launches: int) -> dict:
+    """B2 on the inputs a mesh shard launched it with in the phase's
+    batch (``_mesh_watch``): its rows against the shard's tile read whole
+    (all-zero offsets), bitwise against its plain version; the library
+    call is one einsum of the tile."""
+    from repro_torch.core import spectral_conv
+
+    x, pre, pim, offs, n = cap["x"], cap["re"], cap["im"], cap["offs"], cap["n_out"]
+    if any(offs):
+        raise AssertionError(f"B2 at the {tag}: offsets {offs} on a mesh shard")
+    B, C, F = x.shape
+    tile = torch.complex(pre.float(), pim.float())
+    with spectral_conv.full_precision():
+        out = kernel.spectral_mac_grouped_cuda(x, pre, pim, offs, n)
+        exp = ref.spectral_mac_grouped_ref(x, pre, pim, offs, n)
+        if not _bits_equal(torch.view_as_real(out), torch.view_as_real(exp)):
+            raise AssertionError(f"B2 at the {tag} differs from its plain version")
+        err = float(torch.max(torch.abs(out - exp)))
+        ms = _time_ms(lambda: kernel.spectral_mac_grouped_cuda(x, pre, pim, offs, n), 20)
+        plain_ms = _time_ms(lambda: ref.spectral_mac_grouped_ref(x, pre, pim, offs, n), 3)
+        lib_ms = _time_ms(lambda: torch.einsum("bcf,ocf->bof", x, tile), 20)
+    bound, by = _bound_ms(B * C * F * 8 + 2 * n * C * F * pre.element_size() + B * n * F * 8,
+                          8 * B * n * C * F)
+    print(f"mesh: B2 at the {tag} ({B} rows x {n}-row tile, zero offsets{', tile all zero' if cap['zero_tile'] else ''}) "
+          f"bitwise its plain version, {ms:.4f} ms (bound {bound:.4f} {by}, plain {plain_ms:.3f}, einsum "
+          f"{lib_ms:.4f})")
+    return {
+        "name": f"spectral_mac_grouped[f32,{tag}]",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/stmul/csrc/stmul.cu",
+        "replaces": "src/repro/kernels/stmul/kernel.py:248",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib_ms,
+        "shape": {"B": int(B), "n_out": int(n), "C": int(C), "F": int(F), "zero_tile": cap["zero_tile"]},
+    }
+
+
+# the B2 rows at mesh shards: (shape, tag, whether the tile is all zero);
+# each takes that shape's widest launch of that kind in the batch
+MESH_B2_ROWS = (((1, 2), "(1, 2) shard", False), ((1, 4), "(1, 4) zero tile", True))
+
+
+def phase_mesh(kernel, ref, seed: int, card: str) -> tuple[dict, list[dict]]:
+    """Mesh-sharded video search on the card: the serving batch on one
+    device and on (1, 1), (1, 2), (2, 1), (2, 2) and (1, 4) meshes,
+    benchmarks/mesh.py's five exactness rows bitwise, the mesh metric,
+    launch counts per call against the shard count, latency, memory and
+    a profiled call per shape."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    tenants = _tenants(rng)
+    reqs = _requests(rng)
+    shared = [(t, reqs[0][1]) for t in "ABCD"]  # every tenant on one clip
+    gen = np.random.default_rng([seed, 4])
+    hw = tuple(reqs[0][1].shape[2:4])
+    long = [gen.random((1, 1) + hw + (MESH_CHUNK_FRAMES,), dtype=np.float32) for _ in range(2)]
+    chunked = [("A", long[0]), ("B", long[0]), ("C", long[1]), ("D", long[1])]
+    frames = sum(c.shape[0] * c.shape[-1] for _, c in reqs)
+    report, want, b2_caps = {"shapes": {}}, {}, []
+    kernel.reset_launches()
+    for shape in (None,) + MESH_SHAPES:
+        tag = "single" if shape is None else f"{shape}"
+        srv = _mesh_server(tenants, shape)
+        before = _launch_counts(kernel)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out, lat = _run(srv, reqs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        after = _launch_counts(kernel)
+        per_call = {k: (after[k] - before[k]) / (SERVE_REPS + 1) for k in after}
+        prof = _profile(lambda srv=srv: srv.search_batch(reqs))
+        by = prof["by_name_ms"]
+        dev_ms = {
+            "B2": sum(v for k, v in by.items() if "mac_grouped" in k),
+            "B3": sum(v for k, v in by.items() if "topk" in k),
+            "cuFFT": sum(v for k, v in by.items() if "fft" in k.lower()),
+        }
+        rows = {
+            "volume": srv.search_batch(reqs, return_volume=True),
+            "fused_topk": out,
+            "dedup": srv.search_batch(shared),
+            "dedup_off": srv.search_batch(shared, dedup=False),
+        }
+        chunk_srv = _mesh_server(tenants, shape, max_buffer_windows=8)
+        rows["chunked"] = chunk_srv.search_batch(chunked)
+        bf16 = _mesh_server(tenants, shape, grating_dtype="bfloat16")
+        rows["bf16"] = bf16.search_batch(reqs)
+        metric = srv.metrics()["mesh"]
+        arena = _arena_bytes(srv, shape is not None)
+        if shape is not None:  # the batch once more, its dispatches and B2 inputs recorded
+            watch, dispatches, b2_in = _mesh_watch(srv)
+            with watch:
+                srv.search_batch(reqs)
+            work = _mesh_work(srv, dispatches, shape[0])
+            for at, b2_tag, zero in MESH_B2_ROWS:
+                if at != shape:
+                    continue
+                caps = [c for c in b2_in.values() if c["zero_tile"] == zero]
+                if not caps:
+                    raise AssertionError(f"mesh {shape}: no B2 launch on a {b2_tag}")
+                b2_caps.append((b2_tag, max(caps, key=lambda c: c["x"].shape[0] * c["n_out"])))
+            del b2_in
+        del chunk_srv, bf16
+        entry = {
+            "median_ms": float(np.median(lat)) * 1e3, "latency_s": lat, "peak_device_bytes": peak,
+            "resident_before_bytes": resident,
+            "launches_per_call": per_call, "device_ms": dev_ms, "profile_wall_ms": prof["wall_ms"],
+            "arena_bytes_per_device": arena, "mesh_metric": metric,
+        }
+        if shape is None:
+            want = rows
+            single_calls = per_call
+            if metric is not None:
+                raise AssertionError(f"mesh: the single-device server reports mesh {metric}")
+        else:
+            d, m = shape
+            exact = {
+                "volume": _same_detections(rows["volume"], want["volume"]),
+                "fused_topk": _same_detections(rows["fused_topk"], want["fused_topk"]),
+                "dedup": _same_detections(rows["dedup"], want["dedup"])
+                and _same_detections(rows["dedup"], rows["dedup_off"]),
+                "chunked": _same_detections(rows["chunked"], want["chunked"]),
+                "bf16": _same_detections(rows["bf16"], want["bf16"]),
+            }
+            work_x, arena_x, groups = work
+            entry |= {"exact": exact, "per_device_work_x": work_x, "arena_x": arena_x,
+                      "groups": groups}
+            if metric != {"shape": {"data": d, "model": m}, "devices": d * m}:
+                raise AssertionError(f"mesh {shape}: metrics()['mesh'] is {metric}")
+            if not all(exact.values()):
+                raise AssertionError(f"mesh {shape}: not bitwise the single device: {exact}")
+            if per_call["spectral_mac"] != 0:
+                raise AssertionError(f"mesh {shape}: B1 launched on the pooled mesh path")
+            for k in ("spectral_mac_grouped", "topk_readout"):
+                if per_call[k] != d * m * single_calls[k] or single_calls[k] <= 0:
+                    raise AssertionError(f"mesh {shape}: {k} {per_call[k]} launches a call, "
+                                         f"predicted {d * m} x {single_calls[k]}")
+        report["shapes"][tag] = entry
+        extra = "" if shape is None else (
+            f"; per_device_work_x {entry['per_device_work_x']:.3f}, arena_x {entry['arena_x']:.3f} "
+            f"(groups {[(g['rows'], g['arena_rows'], g['tile_rows']) for g in entry['groups']]} as "
+            f"(rows, arena rows, tile rows)); bitwise {entry['exact']}")
+        print(
+            f"mesh: {tag:8s} median {entry['median_ms']:8.2f} ms (n={SERVE_REPS}) {frames / np.median(lat):10.1f} "
+            f"frames/s, peak {peak / 2**20:.1f} MiB ({(peak - resident) / 2**20:.1f} above the resident), per call B2 {per_call['spectral_mac_grouped']:.0f} / B3 "
+            f"{per_call['topk_readout']:.0f} / B1 {per_call['spectral_mac']:.0f} launches, device ms B2 "
+            f"{dev_ms['B2']:.3f} B3 {dev_ms['B3']:.3f} cuFFT {dev_ms['cuFFT']:.3f} (profiled call "
+            f"{prof['wall_ms']:.2f} ms), arena {arena / 2**20:.1f} MiB per device, metric {metric}{extra} "
+            f"[{card}]"
+        )
+        del srv, out, rows
+    report["launches"] = _launch_counts(kernel)
+    rows = [_b2_shard_row(kernel, ref, tag, cap, report["launches"]["spectral_mac_grouped"])
+            for tag, cap in b2_caps]
+    report["seconds"] = time.perf_counter() - t0
+    print(f"mesh: phase {report['seconds']:.1f} s [{card}]")
+    return report, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2905,6 +3290,12 @@ def main() -> int:
     # in before these two existed
     report["replica"] = phase_replica(kernel, args.seed)
     report["ckpt"] = phase_ckpt(args.seed)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    report["mesh"], mesh_rows = phase_mesh(kernel, ref, args.seed, card)
+    rows += mesh_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(
@@ -2912,10 +3303,6 @@ def main() -> int:
             f"{r['bound_by']}, plain {r['plain_ms']:.3f}, library "
             f"{lib}) launches {r['launches']} max_abs_err {r['max_abs_err']:.3g}"
         )
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
     report["card"] = card
     report["kernels"] = rows
     if args.out:

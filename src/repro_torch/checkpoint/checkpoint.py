@@ -243,11 +243,12 @@ def restore_resharded(
     shardings: dict[str, PyTree],
 ) -> dict:
     """Restore directly onto a device mesh's shardings (the elastic
-    re-mesh path).  Needs the device mesh, which the port does not have
-    yet: raises."""
+    re-mesh of training state).  Needs sharded parameters, which come
+    with LM training: raises."""
     raise NotImplementedError(
-        "restoring onto a device mesh is not ported to the torch package yet "
-        "(mesh mode, ROADMAP A.4); use restore() and move the leaves"
+        "restoring onto a device mesh's shardings is not ported to the torch "
+        "package yet (sharded training state, ROADMAP A.7); use restore() and "
+        "move the leaves"
     )
 
 

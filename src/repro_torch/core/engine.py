@@ -1,5 +1,5 @@
 """Fused weight-stationary spectral query engine — the STHC hot path
-(port of ``repro.core.engine``, without the device-mesh executor).
+(port of ``repro.core.engine``).
 
 * **Record** folds everything static — the pseudo-negative combine
   ``G⁺ − G⁻``, the per-output-channel kernel de-quantization scale and
@@ -21,6 +21,13 @@
   (kernel B2) and one IFFT per window chunk; clips that hash equal
   collapse onto one physical row reading the union of their tenants'
   O-slices (clip-dedup).
+* **Mesh serving** (``mesh=`` on both pooled calls) shards a group over a
+  :class:`~repro_torch.launch.mesh.LocalMesh`: the arena is packed in
+  equal tiles, one per model shard, with no tenant straddling two; the
+  stream rows are split over the data axis; each shard runs the
+  single-device body on its rows and its tile, and the outputs are
+  placed side by side — a concatenation, so every answer is bitwise the
+  single-device one.
 * **Fused readout** (``readout_k``) collapses every window chunk to the
   K best (score, position) pairs per (row, kernel) with kernel B3; the
   states merge associatively, so the result is bitwise the stitched
@@ -35,6 +42,7 @@ stacked batch axis.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -227,6 +235,11 @@ class GratingPool:
       n_out: rows each pooled query reads per request (widest member).
       members: strong references to the member gratings (keeps the
         identity-keyed pool cache sound).
+      shards: equal-height arena tiles the packing respects (mesh
+        serving): ``shards > 1`` bins the members into ``shards`` tiles
+        of ``shard_rows`` rows (greedy least-loaded, deterministic), each
+        member slot wholly inside one tile, so a tenant's O-slice lives
+        on one model shard.
     """
 
     re: Tensor
@@ -234,6 +247,12 @@ class GratingPool:
     o_start: tuple[int, ...]
     n_out: int
     members: tuple[FusedGrating, ...]
+    shards: int = 1
+
+    @property
+    def shard_rows(self) -> int:
+        """Arena rows per tile (all of them when unsharded)."""
+        return int(self.re.shape[0]) // int(self.shards)
 
     @property
     def nbytes(self) -> int:
@@ -277,10 +296,26 @@ def _dedup_members(
     return members, slot_of
 
 
-def _build_pool(members: list[FusedGrating]) -> GratingPool:
+def _bin_members(slots: list[int], shards: int) -> tuple[list[int], int]:
+    """Greedy least-loaded binning of member slot widths into ``shards``
+    tiles: each member's tile (first-seen order, ties to the lowest tile,
+    so the identity-keyed pool cache stays sound) and the tile height
+    (the largest load)."""
+    load = [0] * shards
+    bin_of = []
+    for s in slots:
+        b = min(range(shards), key=lambda i: (load[i], i))
+        bin_of.append(b)
+        load[b] += s
+    return bin_of, max(load) if load else 0
+
+
+def _build_pool(members: list[FusedGrating], shards: int = 1) -> GratingPool:
     """Pack member gratings' planes back to back into one contiguous
-    arena, with zero tail rows so every ``o_start + n_out`` read stays in
-    bounds."""
+    arena.  Unsharded, zero tail rows keep every ``o_start + n_out`` read
+    in bounds; with ``shards > 1`` the members are binned into
+    ``shards`` tiles of ``shard_rows`` rows each (zero-filled to one
+    height), no slot straddling two tiles."""
     c = members[0].channels
     for g in members[1:]:
         if g.channels != c:
@@ -294,24 +329,41 @@ def _build_pool(members: list[FusedGrating]) -> GratingPool:
     feat = tuple(planes[0][0].shape[1:])
     dtype = planes[0][0].dtype
     device = planes[0][0].device
-    res, ims, o_start = [], [], []
-    row = 0
-    for re, im in planes:
-        res.append(re)
-        ims.append(im)
-        o_start.append(row)
-        row += int(re.shape[0])
-    tail = max(o + n_out for o in o_start) - row
-    if tail > 0:
-        zeros = torch.zeros((tail,) + feat, dtype=dtype, device=device)
-        res.append(zeros)
-        ims.append(zeros)
+    res, ims = [], []
+    o_start = [0] * len(members)
+
+    def fill(rows: int) -> None:
+        if rows > 0:
+            zeros = torch.zeros((rows,) + feat, dtype=dtype, device=device)
+            res.append(zeros)
+            ims.append(zeros)
+
+    def place(i: int, row: int) -> int:
+        res.append(planes[i][0])
+        ims.append(planes[i][1])
+        o_start[i] = row
+        return row + slots[i]
+
+    if shards <= 1:
+        row = 0
+        for i in range(len(members)):
+            row = place(i, row)
+        fill(max(o + n_out for o in o_start) - row)
+    else:
+        bin_of, shard_rows = _bin_members(slots, shards)
+        for b in range(shards):
+            row = b * shard_rows
+            for i, tile in enumerate(bin_of):
+                if tile == b:
+                    row = place(i, row)
+            fill((b + 1) * shard_rows - row)
     return GratingPool(
         re=torch.cat(res, dim=0),
         im=torch.cat(ims, dim=0),
         o_start=tuple(o_start),
         n_out=n_out,
         members=tuple(members),
+        shards=max(1, int(shards)),
     )
 
 
@@ -347,6 +399,23 @@ def clip_keys_for(arrays) -> list:
         keys = [clip_key(x) for x in distinct]
     memo = {id(x): k for x, k in zip(distinct, keys)}
     return [memo[id(x)] for x in arrays]
+
+
+def _unique_clips(keys: list) -> tuple[list[int], list[int]]:
+    """The first request of each distinct clip key, in order, and which
+    of them serves each request (a None key is always its own clip)."""
+    uniq: list[int] = []
+    uniq_of: list[int] = []
+    by_key: dict[tuple, int] = {}
+    for j, k in enumerate(keys):
+        u = by_key.get(k) if k is not None else None
+        if u is None:
+            u = len(uniq)
+            uniq.append(j)
+            if k is not None:
+                by_key[k] = u
+        uniq_of.append(u)
+    return uniq, uniq_of
 
 
 def _stream_scale(x: Tensor) -> Tensor:
@@ -509,6 +578,9 @@ class QueryEngine:
         # row-padded arena views for dedup union spans that overhang the
         # pool tail, keyed (pool id, rows needed); entries pin the pool
         self._padded: OrderedDict[tuple, tuple] = OrderedDict()  # guarded-by: _pools_lock
+        # the arena tiles placed on a mesh, keyed (pool id, mesh); entries
+        # pin the pool.  A server owns one mesh per replica, so it stays small
+        self._mesh_arenas: OrderedDict[tuple, tuple] = OrderedDict()  # guarded-by: _pools_lock
         self._pools_lock = threading.Lock()
         # clip-dedup accounting: offered = clip rows requested,
         # dispatched = physical rows after collapsing equal clips
@@ -865,29 +937,44 @@ class QueryEngine:
         *,
         clip_keys: "Sequence[tuple | None] | None" = None,
         dedup: bool = True,
+        mesh=None,
     ) -> list[Tensor]:
         """Answer a mixed-tenant clip batch with one dispatch per pool
         group: one forward FFT over the stacked clips, one pooled MAC in
         which every row reads its own tenant's O-slice (kernel B2 under
         ``use_pallas``), one inverse FFT.  Rows whose clips hash equal
-        collapse onto one physical row (``dedup``).  Returns outputs in
-        request order, each (B_i, O_i, *out_shape)."""
+        collapse onto one physical row (``dedup``).
+
+        ``mesh`` (a :class:`~repro_torch.launch.mesh.LocalMesh`) shards
+        each group: the arena in tiles over the model axis, the physical
+        clip rows over the data axis; every shard contracts its rows with
+        its whole tile, and each answer is bitwise the single-device
+        one.  Returns outputs in request order, each (B_i, O_i,
+        *out_shape)."""
         requests = [(g, self._as_input(x)) for g, x in requests]
         groups = self._group_requests(requests)
         keys = self._clip_ids(requests, clip_keys, dedup)
         results: list[Tensor | None] = [None] * len(requests)
+        shards = int(mesh.shape["model"]) if mesh is not None else 1
         for idxs in groups.values():
             gratings = [requests[i][0] for i in idxs]
             members, slot_of = _dedup_members(gratings)
-            pool = self._pool_for(members)
+            pool = self._pool_for(members, shards)
             xs = [requests[i][1] for i in idxs]
-            lay = self._dedup_layout(pool, gratings, slot_of, [keys[i] for i in idxs])
+            gkeys = [keys[i] for i in idxs]
+            if mesh is not None:
+                lay = self._mesh_layout(pool, slot_of, gkeys)
+            else:
+                lay = self._dedup_layout(pool, gratings, slot_of, gkeys)
             ux = [xs[j] for j in lay.uniq]
             x = ux[0] if len(ux) == 1 else torch.cat(ux, dim=0)
             nbs = [int(xj.shape[0]) for xj in ux]
             rows = [r for u, nb in enumerate(nbs) for r in [lay.row_of[u]] * nb]
             self._count_pooled(sum(int(xj.shape[0]) for xj in xs), sum(nbs))
-            y = self._pooled_dispatch(x, pool, rows, gratings[0], n_out=lay.n_out)
+            if mesh is not None:
+                y = self._mesh_oneshot(x, pool, mesh, gratings[0])
+            else:
+                y = self._pooled_dispatch(x, pool, rows, gratings[0], n_out=lay.n_out)
             ub0 = np.concatenate([[0], np.cumsum(nbs)])
             for j, i in enumerate(idxs):
                 b0 = int(ub0[lay.uniq_of[j]])
@@ -920,17 +1007,7 @@ class QueryEngine:
         """Collapse group rows with content-equal clips onto shared
         physical rows, each reading the union span of the member slices
         requested for its clip; ``n_out`` is the widest span."""
-        uniq: list[int] = []
-        uniq_of: list[int] = []
-        by_key: dict[tuple, int] = {}
-        for j, k in enumerate(keys):
-            u = by_key.get(k) if k is not None else None
-            if u is None:
-                u = len(uniq)
-                uniq.append(j)
-                if k is not None:
-                    by_key[k] = u
-            uniq_of.append(u)
+        uniq, uniq_of = _unique_clips(keys)
         span_lo: list = [None] * len(uniq)
         span_hi = [0] * len(uniq)
         for j, u in enumerate(uniq_of):
@@ -951,24 +1028,29 @@ class QueryEngine:
         clip_keys: "Sequence[tuple | None] | None" = None,
         dedup: bool = True,
         readout_k: int | None = None,
+        mesh=None,
     ) -> "list[Tensor] | list[TopKDetections]":
         """Pooled :meth:`query_stream`: mixed-tenant long clips sharing the
         window geometry stack on the batch axis and every window chunk
         runs one pooled FFT + MAC + IFFT against the group arena, with
         clip-dedup, the stream cursor and the fused readout as in
         :meth:`query_many` / :meth:`query_stream`.  Each request's output
-        equals ``query_stream(grating_i, x_i)``."""
+        equals ``query_stream(grating_i, x_i)``.  ``mesh`` shards every
+        group as in :meth:`query_many`, window chunks and cursor segments
+        included; volumes and top-K states are bitwise the single-device
+        ones."""
         requests = [(g, host_stream(x, self.device)) for g, x in requests]
         groups = self._group_requests(requests, stream=True)
         keys = self._clip_ids(requests, clip_keys, dedup)
         results: list = [None] * len(requests)
+        shards = int(mesh.shape["model"]) if mesh is not None else 1
         for idxs in groups.values():
             gratings = [requests[i][0] for i in idxs]
             g0 = gratings[0]
             if g0.ker_shape is None:
                 raise ValueError("grating lacks ker_shape; re-record before streaming")
             members, slot_of = _dedup_members(gratings)
-            pool = self._pool_for(members)
+            pool = self._pool_for(members, shards)
             xs = [requests[i][1] for i in idxs]
             kh, kw, kt = g0.ker_shape
             oh, ow, _ = g0.out_shape
@@ -978,7 +1060,11 @@ class QueryEngine:
                     f"clip spatial dims {tuple(xs[0].shape[-3:-1])} do not "
                     f"match the recorded frame size {frame_hw}"
                 )
-            lay = self._dedup_layout(pool, gratings, slot_of, [keys[i] for i in idxs])
+            gkeys = [keys[i] for i in idxs]
+            if mesh is not None:
+                lay = self._mesh_layout(pool, slot_of, gkeys)
+            else:
+                lay = self._dedup_layout(pool, gratings, slot_of, gkeys)
             ux = [xs[j] for j in lay.uniq]
             nbs = [int(xj.shape[0]) for xj in ux]
             ub0 = [0]
@@ -990,20 +1076,29 @@ class QueryEngine:
                 for j in range(len(idxs))
             ]
             self._count_pooled(sum(int(xj.shape[0]) for xj in xs), sum(nbs))
-            max_row = max(lay.row_of) if lay.row_of else 0
-            pool_re, pool_im = self._padded_arena(pool, max_row, lay.n_out)
             x = stack_streams(ux, self.device)
             plan = self.stream_plan_for(g0, x.shape[-1], chunk_windows)
             mbw = self._max_buffer_windows(max_buffer_windows)
-            window_fn = self._pooled_window_fn(
-                pool_re, pool_im, rows, lay.n_out, g0.fft_shape, plan.chunk
-            )
+            chunked = mbw is not None and plan.n_blocks > mbw
             static = dict(
                 ker_shape=g0.ker_shape, encode=g0.encode, slm_bits=g0.slm_bits, k=readout_k
             )
+            if mesh is not None:
+                run = self._mesh_stream_fn(pool, mesh, g0.fft_shape, static)
+            else:
+                max_row = max(lay.row_of) if lay.row_of else 0
+                pool_re, pool_im = self._padded_arena(pool, max_row, lay.n_out)
+                upload = _SegmentUploader(self.device) if chunked else self._as_input
+
+                def run(xs_, x_scale, p):
+                    window_fn = self._pooled_window_fn(
+                        pool_re, pool_im, rows, lay.n_out, g0.fft_shape, p.chunk
+                    )
+                    return self._osave(upload(xs_), window_fn, x_scale, plan=p, **static)
+
             stream_out = (oh, ow, plan.n_valid)
-            if mbw is None or plan.n_blocks <= mbw:
-                out = self._osave(self._as_input(x), window_fn, None, plan=plan, **static)
+            if not chunked:
+                out = run(x, None, plan)
                 if readout_k is None:
                     outs = [out[b0 : b0 + nb, oo : oo + o] for b0, nb, oo, o in splits]
                 else:
@@ -1018,19 +1113,10 @@ class QueryEngine:
             else:
                 cursor = spectral_conv.stream_cursor(x.shape[-1], kt, plan.block_t, plan.chunk, mbw)
                 x_scale = self._host_scale(x) if g0.encode else None
-                upload = _SegmentUploader(self.device)
                 seg_outs, nv_locals, t0s = [], [], []
                 for seg in cursor:
                     seg_plan = _segment_plan(seg, plan, kt)
-                    seg_fn = self._pooled_window_fn(
-                        pool_re, pool_im, rows, lay.n_out, g0.fft_shape, seg_plan.chunk
-                    )
-                    seg_outs.append(
-                        self._osave(
-                            upload(x[..., seg.t0 : seg.t1]), seg_fn, x_scale, plan=seg_plan,
-                            **static,
-                        )
-                    )
+                    seg_outs.append(run(x[..., seg.t0 : seg.t1], x_scale, seg_plan))
                     nv_locals.append(seg_plan.n_valid)
                     t0s.append(seg.out_t0)
                 if readout_k is None:
@@ -1101,17 +1187,18 @@ class QueryEngine:
             groups.setdefault(key, []).append(i)
         return groups
 
-    def _pool_for(self, members: list[FusedGrating]) -> GratingPool:
+    def _pool_for(self, members: list[FusedGrating], shards: int = 1) -> GratingPool:
         """Fetch or build the packed arena for this member list, memoized
-        per member identity (gratings are immutable once recorded) with a
-        small LRU bound."""
-        key = tuple(id(g) for g in members)
+        per (member identity, shard count) — gratings are immutable once
+        recorded, and one member set tiled differently is another arena —
+        with a small LRU bound."""
+        key = (tuple(id(g) for g in members), int(shards))
         with self._pools_lock:
             pool = self._pools.get(key)
             if pool is not None:
                 self._pools.move_to_end(key)
                 return pool
-        pool = _build_pool(members)
+        pool = _build_pool(members, shards)
         with self._pools_lock:
             self._pools[key] = pool
             while len(self._pools) > self._max_pools:
@@ -1138,6 +1225,174 @@ class QueryEngine:
             while len(self._padded) > self._max_pools:
                 self._padded.popitem(last=False)
         return re, im
+
+    # -- mesh-sharded execution (query_many / query_stream_many mesh=) -----
+
+    def _mesh_layout(self, pool: GratingPool, slot_of: list[int], keys: list) -> _DedupLayout:
+        """Row layout of a mesh dispatch: full-arena fan-out.  Every
+        physical row reads the whole tiled arena (each model shard its
+        own tile), so a request's answer is the slice at its member's
+        absolute ``o_start``, and clip-dedup keeps only the collapse onto
+        unique clips."""
+        uniq, uniq_of = _unique_clips(keys)
+        return _DedupLayout(
+            uniq=uniq,
+            uniq_of=uniq_of,
+            row_of=[0] * len(uniq),
+            o_off=[pool.o_start[slot_of[j]] for j in range(len(uniq_of))],
+            n_out=int(pool.re.shape[0]),
+        )
+
+    def _mesh_arena(self, pool: GratingPool, mesh) -> tuple:
+        """The arena's tiles placed on the mesh: the pool's ``shards``
+        tiles over the model axis, tile ``mi`` on device
+        ``(di, mi)`` of every data row (each holds its own copy; on the
+        arena's own device it is a view).  Memoized per (pool, mesh), so
+        the tiles move once per membership, not per dispatch."""
+        key = (id(pool), mesh)
+        with self._pools_lock:
+            hit = self._mesh_arenas.get(key)
+            if hit is not None:
+                self._mesh_arenas.move_to_end(key)
+                return hit[1]
+        d, m = mesh.shape["data"], mesh.shape["model"]
+        if pool.shards != m:
+            raise ValueError(f"a pool of {pool.shards} tiles on a mesh of {m} model shards")
+        s = pool.shard_rows
+        tiles = tuple(
+            tuple(
+                (
+                    pool.re[mi * s : (mi + 1) * s].to(mesh.device(di, mi)),
+                    pool.im[mi * s : (mi + 1) * s].to(mesh.device(di, mi)),
+                )
+                for mi in range(m)
+            )
+            for di in range(d)
+        )
+        with self._pools_lock:
+            self._mesh_arenas[key] = (pool, tiles)
+            while len(self._mesh_arenas) > self._max_pools:
+                self._mesh_arenas.popitem(last=False)
+        return tiles
+
+    @staticmethod
+    def _mesh_dispatch(mesh, tiles, x, x_scale, per_row: int, upload, body):
+        """Run one physical batch over the mesh.  The rows are zero-padded
+        to a multiple of the data axis (a pad row's scale is 1) and data
+        row ``di`` takes ``b_local`` of them; ``body(x_l, scale_l, tile_re,
+        tile_im)`` runs shard ``(di, mi)`` on its device and returns a
+        tensor, or a tuple of them, of (b_local, tile rows, ...), placed
+        at ``[di * b_local, mi * tile rows]`` of one output on the mesh's
+        first device.
+
+        ``per_row`` is the transforms one row gives a forward FFT.  On a
+        mesh with a CPU device, when a shard's FFT would be a lone
+        transform while the unsharded one batches several, the shard
+        takes a zero companion row, dropped from its output: a lone FFT
+        on the CPU rounds differently from the same transform in a batch
+        (ROADMAP C.14).  cuFFT shows no such batch dependence, so a card
+        shard never pays for the companion."""
+        d, m = mesh.shape["data"], mesh.shape["model"]
+        b = int(x.shape[0])
+        bl = -(-b // d)
+        if d * bl > b:
+            x = torch.cat([x, x.new_zeros((d * bl - b,) + tuple(x.shape[1:]))])
+            if x_scale is not None:
+                x_scale = torch.cat(
+                    [x_scale, x_scale.new_ones((d * bl - b,) + tuple(x_scale.shape[1:]))]
+                )
+        on_cpu = any(dev.type == "cpu" for row in mesh.devices for dev in row)
+        companion = on_cpu and bl * per_row == 1 < b * per_row
+        out, single = None, True
+        for di in range(d):
+            xl = x[di * bl : (di + 1) * bl]
+            sl = None if x_scale is None else x_scale[di * bl : (di + 1) * bl]
+            if companion:
+                xl = torch.cat([xl, torch.zeros_like(xl)])
+                sl = None if sl is None else torch.cat([sl, torch.ones_like(sl)])
+            placed: dict = {}
+            for mi in range(m):
+                dev = mesh.device(di, mi)
+                ctx = torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+                with ctx:
+                    if dev not in placed:
+                        placed[dev] = (upload(xl, dev), None if sl is None else sl.to(dev))
+                    tre, tim = tiles[di][mi]
+                    ys = body(*placed[dev], tre, tim)
+                single = isinstance(ys, Tensor)
+                ys = (ys,) if single else ys
+                s = int(tre.shape[0])
+                if out is None:
+                    out = tuple(
+                        torch.empty(
+                            (d * bl, m * s) + tuple(y.shape[2:]),
+                            dtype=y.dtype,
+                            device=mesh.device(0, 0),
+                        )
+                        for y in ys
+                    )
+                for o, y in zip(out, ys):
+                    o[di * bl : (di + 1) * bl, mi * s : (mi + 1) * s] = y[:bl]
+        return out[0] if single else out
+
+    def _mesh_stream_fn(self, pool: GratingPool, mesh, fft_shape, static: dict):
+        """The sharded overlap-save pass of one pool group: ``run(x,
+        x_scale, plan)`` runs the single-device ``_osave`` body on every
+        shard — encode, one ``rfftn`` per window chunk, B2 through
+        ``pooled_query_shard`` (or the dense gather at offset 0), the
+        ``irfftn``, the stitch or the fused B3 top-K — and returns the
+        group's (rows, arena rows, ...) output.  Host rows reach each
+        device through pinned buffers, one uploader per device."""
+        tiles = self._mesh_arena(pool, mesh)
+        uploaders: dict = {}
+
+        def upload(t, dev):
+            if dev not in uploaders:
+                uploaders[dev] = _SegmentUploader(dev)
+            return uploaders[dev](t)
+
+        def run(x, x_scale, plan):
+            def body(xl, sl, tre, tim):
+                if self.config.use_pallas:
+
+                    def window_fn(win, win_out):
+                        return stmul_ops.pooled_query_shard(win, tre, tim, fft_shape, win_out)
+
+                else:
+                    window_fn = self._pooled_window_fn(
+                        tre, tim, [0] * int(xl.shape[0]), int(tre.shape[0]), fft_shape, plan.chunk
+                    )
+                return self._osave(xl, window_fn, sl, plan=plan, **static)
+
+            per_row = plan.chunk * int(x.shape[1])
+            return self._mesh_dispatch(mesh, tiles, x, x_scale, per_row, upload, body)
+
+        return run
+
+    def _mesh_oneshot(self, x: Tensor, pool: GratingPool, mesh, proto: FusedGrating) -> Tensor:
+        """The sharded one-shot dispatch: encode the whole batch (as the
+        single-device dispatch does), then per shard one FFT, B2 through
+        ``pooled_query_shard`` (or the dense gather at offset 0), one
+        IFFT and the de-scale."""
+        x_scale = None
+        if proto.encode:
+            x, x_scale = self._encode(x, proto.slm_bits)
+        use_pallas = self.config.use_pallas
+
+        def body(xl, sl, tre, tim):
+            if use_pallas:
+                y = stmul_ops.pooled_query_shard(xl, tre, tim, proto.fft_shape, proto.out_shape)
+            else:
+                y = _pooled_query_dense(
+                    xl, tre, tim, [0] * int(xl.shape[0]), int(tre.shape[0]),
+                    proto.fft_shape, proto.out_shape,
+                )
+            return y if sl is None else y * sl
+
+        tiles = self._mesh_arena(pool, mesh)
+        return self._mesh_dispatch(
+            mesh, tiles, x, x_scale, int(x.shape[1]), lambda t, dev: t.to(dev), body
+        )
 
     def _pooled_dispatch(
         self,

@@ -120,6 +120,24 @@ def query_grating_pooled(
     return y[..., : out_shape[0], : out_shape[1], : out_shape[2]]
 
 
+def pooled_query_shard(
+    x: Tensor,
+    pool_re: Tensor,
+    pool_im: Tensor,
+    fft_shape: tuple[int, int, int],
+    out_shape: tuple[int, int, int],
+) -> Tensor:
+    """Shard-local full-arena fan-out: :func:`query_grating_pooled` with
+    every clip row reading the local arena tile whole (zero offsets,
+    ``n_out`` = the tile's rows) — the grouped-MAC body of the engine's
+    mesh executor, where each model shard holds one tile and no offset
+    crosses a shard."""
+    rows = [0] * int(x.shape[0])
+    return query_grating_pooled(
+        x, pool_re, pool_im, rows, int(pool_re.shape[0]), fft_shape, out_shape
+    )
+
+
 def query_grating_pallas(
     x: Tensor,
     grating: Tensor,

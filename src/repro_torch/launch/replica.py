@@ -301,9 +301,11 @@ class WorkerReplica:
 
     @property
     def mesh(self):
-        """This replica's intra-replica device mesh: always None (one
-        device) until the port has mesh serving."""
-        return None
+        """This replica's device mesh (None = one device).  The server
+        builds it from ``VideoSearchConfig.mesh_shape``, so a replacement
+        replica, whose server is built anew, owns a mesh of its own and
+        never shares a dead replica's."""
+        return getattr(self.server, "mesh", None)
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -329,7 +331,8 @@ class WorkerReplica:
             out["outstanding"] = self.outstanding
             out["killed"] = self._killed
         out["stalled"] = self._stalled.is_set()
-        out["mesh"] = None
+        mesh = self.mesh
+        out["mesh"] = mesh.shape if mesh is not None else None
         return out
 
 

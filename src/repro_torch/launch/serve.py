@@ -36,7 +36,12 @@ mixed-tenant microbatches with same-clip requests side by side (dedup
 groups), and each batch runs on the highest rung of the degradation
 ladder (pooled → sequential → single) whose breaker admits it, under
 deadlines, seeded retries and a watchdog that resolves every future.
-Mesh serving comes in a later slice.
+
+``VideoSearchConfig(mesh_shape=(data, model))`` serves the pooled rung
+over a :class:`~repro_torch.launch.mesh.LocalMesh` the server builds
+once (``mesh_devices`` lays it over named devices, which may repeat: a
+logical mesh on one card or on the CPU); every answer is bitwise the
+single-device one, and ``metrics()["mesh"]`` reports the shape.
 
 :class:`HybridClassifierServer` serves the paper's hybrid 3-D CNN (§4):
 the conv layer is an STHC whose grating is recorded once, at
@@ -85,6 +90,7 @@ from repro_torch.core.engine import (
 )
 from repro_torch.core.fidelity import FidelityPipeline
 from repro_torch.core.sthc import STHC, STHCConfig
+from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.launch.resilience import (
     BatchExecutionError,
     DeadlineExceeded,
@@ -133,7 +139,13 @@ class VideoSearchConfig:
         tiles; kept for config compatibility, read by no CUDA kernel.
       guard_scores: quarantine requests with non-finite scores.
       verify_gratings: checksum-verify every cache fetch.
-      mesh_shape: device-mesh serving; not ported yet (raises).
+      mesh_shape: ``(data, model)`` device mesh of the pooled rung: the
+        arena's tiles over the model axis, the stream rows over the data
+        axis, scores bitwise the single-device ones.  None = one device.
+      mesh_devices: the ``data * model`` devices of that mesh, row-major
+        (a device may repeat: ``("cpu",) * 8``, ``("cuda:0",) * 4``);
+        None = the visible CUDA devices.  The one field the reference
+        lacks: its forced host devices have no torch counterpart.
       device: torch device; None = the card, raising when no GPU is
         present.  Pass ``"cpu"`` for the plain torch path.
     """
@@ -158,13 +170,39 @@ class VideoSearchConfig:
     guard_scores: bool = True
     verify_gratings: bool = False
     mesh_shape: tuple[int, int] | None = None
+    mesh_devices: tuple[str, ...] | None = None
     device: str | None = None
 
     def __post_init__(self) -> None:
-        if self.mesh_shape is not None:
-            raise NotImplementedError(
-                "mesh serving is not ported to the torch package yet"
-            )
+        """Structural validation of the mesh request (the devices' fit is
+        checked by ``make_local_mesh`` when the server is built), its
+        devices' type against the server's (None means the card on both
+        sides), then the device."""
+        ms = self.mesh_shape
+        if ms is not None:
+            if (
+                not isinstance(ms, (tuple, list))
+                or len(ms) != 2
+                or not all(isinstance(a, int) and not isinstance(a, bool) for a in ms)
+            ):
+                raise ValueError(f"mesh_shape must be a (data, model) pair of ints, got {ms!r}")
+            if any(a < 1 for a in ms):
+                raise ValueError(f"mesh_shape axes must be >= 1, got {tuple(ms)}")
+            self.mesh_shape = tuple(ms)
+        if self.mesh_devices is not None:
+            if ms is None:
+                raise ValueError("mesh_devices needs a mesh_shape")
+            self.mesh_devices = tuple(str(d) for d in self.mesh_devices)
+        if ms is not None:
+            want = "cuda" if self.device is None else torch.device(self.device).type
+            got = {"cuda"} if self.mesh_devices is None else {
+                torch.device(d).type for d in self.mesh_devices
+            }
+            if got != {want}:
+                raise ValueError(
+                    f"mesh devices {self.mesh_devices or 'the visible CUDA devices'} are not "
+                    f"all of the server's device type {want!r}"
+                )
         self.device = resolve_device(self.device)
 
 
@@ -206,6 +244,11 @@ class VideoSearchServer:
         self.cfg = cfg = cfg if cfg is not None else VideoSearchConfig()
         self.frame_hw = tuple(frame_hw)
         self.device = cfg.device
+        # the replica's own device mesh, built once and passed to every
+        # pooled dispatch; make_local_mesh raises when the devices do not fit
+        self.mesh = None
+        if cfg.mesh_shape is not None:
+            self.mesh = make_local_mesh(*cfg.mesh_shape, devices=cfg.mesh_devices)
         self.cache = GratingCache(
             max_entries=cfg.cache_entries,
             max_bytes=cfg.cache_bytes,
@@ -525,12 +568,13 @@ class VideoSearchServer:
                     clip_keys=group_keys,
                     dedup=dedup,
                     readout_k=topk,
+                    mesh=self.mesh,
                 )
                 states = [(d.scores.cpu(), d.index.cpu()) for d in dets]
             else:
                 dets = None
                 fmaps = engine.query_stream_many(
-                    list(zip(gratings, stacks)), clip_keys=group_keys, dedup=dedup
+                    list(zip(gratings, stacks)), clip_keys=group_keys, dedup=dedup, mesh=self.mesh
                 )
                 readouts = self._readout(fmaps)
             dt = time.perf_counter() - t0
@@ -686,6 +730,12 @@ class VideoSearchServer:
             "tenants": per_tenant,
             "pooled_dispatches": pooled,
             "sequential_dispatches": sequential,
+            # the replica's device mesh (None = one device)
+            "mesh": (
+                {"shape": self.mesh.shape, "devices": self.mesh.size}
+                if self.mesh is not None
+                else None
+            ),
             "quarantined": quarantined,
             "dedup": self.sthc.engine.pool_stats(),
             "queries": queries,

@@ -361,6 +361,59 @@ def test_warm_restart_is_bitwise_and_gated_by_admission(tmp_path):
         np.testing.assert_array_equal(np.asarray(want["scores"]), np.asarray(got["scores"]))
 
 
+def _build_mesh_server():
+    """A replica server on a (1, 2) logical mesh of the CPU."""
+    return VideoSearchServer(
+        frame_hw=(12, 12),
+        cfg=VideoSearchConfig(
+            window_frames=8, mesh_shape=(1, 2), mesh_devices=("cpu",) * 2, device="cpu"
+        ),
+    )
+
+
+def test_replica_mesh_and_status_key():
+    """A replica's mesh is its server's, each replica owns its own, the
+    status carries the shape, and the scores are bitwise a single-device
+    set's."""
+    with _make_set(n=2) as plain, ReplicaSet(
+        _build_mesh_server, n_replicas=2, hedge=HedgePolicy(enabled=False)
+    ) as rs:
+        rs.add_tenant("t0", _kernels(0))
+        for name in ("r0", "r1"):
+            replica = rs._replicas[name]
+            assert replica.mesh is replica.server.mesh
+            assert replica.mesh.shape == {"data": 1, "model": 2}
+            assert replica.metrics()["mesh"] == {"data": 1, "model": 2}
+        assert rs._replicas["r0"].mesh is not rs._replicas["r1"].mesh
+        assert plain._replicas["r0"].mesh is None
+        assert plain._replicas["r0"].metrics()["mesh"] is None
+        clip = _clip(3)
+        want, got = plain.search("t0", clip), rs.search("t0", clip)
+        np.testing.assert_array_equal(
+            np.asarray(want["scores"]).view(np.int32), np.asarray(got["scores"]).view(np.int32)
+        )
+
+
+def test_replacement_replica_builds_its_own_mesh(tmp_path):
+    """A warm-restarted replica owns a new mesh, never the dead one's,
+    and passes the bitwise admission probe on it."""
+    ckpt = str(tmp_path / "manifest")
+    with ReplicaSet(
+        _build_mesh_server, n_replicas=2, hedge=HedgePolicy(enabled=False), ckpt_dir=ckpt
+    ) as rs:
+        rs.add_tenant("t0", _kernels(0))
+        clip = _clip(2)
+        want = rs.search("t0", clip)
+        dead_mesh = rs._replicas["r0"].mesh
+        rs.kill_replica("r0")
+        replica = rs.replace_replica("r0")
+        assert replica.mesh is not None and replica.mesh is not dead_mesh
+        assert replica.mesh is not rs._replicas["r1"].mesh
+        assert replica.metrics()["mesh"] == {"data": 1, "model": 2}
+        got = replica.submit("t0", clip, block=True).result(timeout=TIMEOUT)
+        np.testing.assert_array_equal(np.asarray(want["scores"]), np.asarray(got["scores"]))
+
+
 def test_replace_requires_dead_replica_and_healthy_reference(tmp_path):
     ckpt = str(tmp_path / "manifest")
     with _make_set(n=1, ckpt_dir=ckpt) as rs:

@@ -183,7 +183,8 @@ def test_entry_points_need_a_device(setup):
             t_serve.VideoSearchServer(frame_hw=FRAME_HW)
         with pytest.raises(RuntimeError, match="CUDA"):
             t_serve.VideoSearchConfig()
-    with pytest.raises(NotImplementedError):
+    # a CPU server's default mesh would lie on the card
+    with pytest.raises(ValueError, match="device type 'cpu'"):
         t_serve.VideoSearchConfig(device="cpu", mesh_shape=(1, 1))
     server = t_serve.VideoSearchServer(
         kernels=setup[0]["alpha"], frame_hw=FRAME_HW,
@@ -215,7 +216,8 @@ new = ("repro_torch.kernels.conv3d.kernel", "repro_torch.kernels.conv3d.ops",
        "repro_torch.core.hybrid", "repro_torch.distributed.fault",
        "repro_torch.optim.adamw", "repro_torch.optim.schedule",
        "repro_torch.optim.compression", "repro_torch.launch.train_hybrid",
-       "repro_torch.checkpoint.checkpoint", "repro_torch.launch.replica")
+       "repro_torch.checkpoint.checkpoint", "repro_torch.launch.replica",
+       "repro_torch.launch.mesh", "repro_torch.distributed.sharding")
 assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
 print("isolated", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
