@@ -16,8 +16,8 @@ Phases, each reported on lines of its own:
              227 KB), and its bf16 builds must hold warpgroup MMAs
              (HGMMA, wgmma) and cp.async copies (LDGSTS) in their SASS
              (``cuobjdump``); B5's chunk-state and chunk-scan kernels
-             must hold tensor-core MMAs (HMMA, 3xTF32 mma.sync), the
-             scan also cp.async copies; B4's tensor-core kernel
+             of every (chunk, P, N) build must hold tensor-core MMAs
+             (HMMA, 3xTF32 mma.sync), the scan also cp.async copies; B4's tensor-core kernel
              (``conv3d_tc.cu``) warpgroup MMAs (HGMMA, 3xTF32 wgmma),
              tensor-map copies (UTMALDG) and bulk copies (UBLKCP), with
              no wgmma serialization reported by ptxas.
@@ -91,10 +91,11 @@ Phases, each reported on lines of its own:
              and full generation; the SSD kernel's (B5) launch counter,
              zeroed before the timed calls, must read 48 x the prefills
              run.  B5 is held against its plain version on layer 0's SSD
-             inputs of the first batch, of its 2 x 1024 prefix (the grid
-             batch two gives it) and of its first prompt (1 x 2048, 32
-             heads), relative L2 <= 1e-5 for y and the final state, and
-             timed like the others (no single PyTorch call computes it:
+             operands as the model launches it: the first batch, batch
+             two padded to 2 x 1024, and the first prompt alone (1 x
+             2048, 32 heads), relative L2 <= 1e-5 for y and the final
+             state, its passes' device ms from a profiled prefill of
+             the same prompts, and timed like the others (no single PyTorch call computes it:
              library "none"; bound: its FLOPs at the TF32 tensor-core
              rate / 3, the float32 FMA bound beside it); its (16, 16, 16) build,
              which ``serve --mode lm`` runs on the smoke config, is held
@@ -240,6 +241,26 @@ Phases, each reported on lines of its own:
              mesh's widest shard and a (1, 4) shard whose tile is all
              zero (zero offsets both), is held bitwise against its plain
              version and timed (two ``kernel:`` rows).
+12. lm_zamba — zamba2-2.7b at its published config (54 Mamba-2 layers,
+             d_model 2560, state 64, 80 SSM heads; one shared attention
+             block, width 5120, 32 heads of 160, applied at 9 sites;
+             2.459 B parameters, bf16, random weights from a seeded
+             generator on the card) served by ``LMServer.generate`` with
+             a KV cache per site of prompt + new tokens, on the ``lm``
+             batches, timed and profiled as there (device ms by kind:
+             B5, B6, GEMMs, elementwise); B5's counter must read 54 and
+             B6's 9 x the prefills run (decode launches neither).  On
+             each batch's prompts, B5's (128, 64, 64) build is held
+             against its plain version on layer 0's SSD operands as the
+             model launches it (2 x 1000 padded to 2 x 1024; relative L2
+             <= 1e-5; its passes' device ms from that batch's profiled
+             prefill), and B6's head-dim-160 builds on the first site's
+             q, k, v (S = 1000 unpadded; bf16: the ``lm_dense`` bounds;
+             float32: relative L2 <= 1e-5, max abs <= 3e-5); and
+             a one-site float32 model at full width (6 layers) must give
+             the same last logits and decode step by the kernel and the
+             plain routes (relative L2 <= 1e-4).  Runs last, so that no
+             earlier phase runs in a changed process state.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -284,8 +305,8 @@ FLASH_BF16_ABS_V = 5e-3  # max abs error, in units of max|v|
 FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-5, 3e-5
 # B6 bf16 sweep (B, Sq, Sk, H, G, D, causal): ragged lengths (37, 130,
 # 1000: not multiples of the 64-row tile), Sq != Sk both ways, GQA groups
-# H/G of 1, 2 and 6, head dims 16, 24 (padded to 32 in shared memory), 32
-# and 128, both mask settings
+# H/G of 1, 2 and 6, head dims 16, 24 (padded to 32 in shared memory), 32,
+# 128 and 160 (padded to 192), both mask settings
 FLASH_BF16_SWEEP = (
     (2, 37, 37, 4, 4, 16, True), (2, 37, 37, 4, 2, 16, False),
     (1, 40, 100, 4, 2, 16, False), (1, 40, 100, 4, 2, 16, True),
@@ -293,6 +314,8 @@ FLASH_BF16_SWEEP = (
     (2, 64, 64, 2, 2, 24, True), (2, 130, 130, 6, 1, 24, False),
     (1, 40, 100, 12, 2, 128, False), (1, 300, 300, 4, 4, 128, True),
     (2, 1000, 1000, 12, 2, 128, True), (2, 1000, 1000, 12, 2, 128, False),
+    (2, 1000, 1000, 32, 32, 160, True), (2, 1000, 1000, 32, 32, 160, False),
+    (1, 130, 130, 4, 2, 160, True), (1, 40, 100, 4, 4, 160, False),
 )
 LM_RTOL = 1e-4
 # substrings of the hand-written kernels' names, listed in every profile
@@ -482,10 +505,10 @@ def _sass_counts(so_path: str, ops: tuple) -> dict | None:
     return {names[f]: c for f, c in counts.items()}
 
 
-def check_ssd_build(so_path: str) -> dict | None:
-    """B5's chunk-state and chunk-scan kernels, every instantiation, issue
-    tensor-core MMAs (HMMA, mma.sync) in their SASS; the scan kernel's
-    operands arrive by cp.async (LDGSTS)."""
+def check_ssd_build(ssd_kernel, so_path: str) -> dict | None:
+    """B5's chunk-state and chunk-scan kernels, every instantiation of
+    ``kernel.SHAPES``, issue tensor-core MMAs (HMMA, mma.sync) in their
+    SASS; the scan kernel's operands arrive by cp.async (LDGSTS)."""
     counts = _sass_counts(so_path, ("HMMA", "LDGSTS", "FFMA"))
     if counts is None:
         print("build: ssd SASS: cuobjdump not found, instructions not counted")
@@ -493,7 +516,7 @@ def check_ssd_build(so_path: str) -> dict | None:
     mma = {f: c for f, c in counts.items() if "ssd_state_kernel" in f or "ssd_scan_kernel" in f}
     for f, c in mma.items():
         print(f"build: ssd SASS {f}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
-    if len(mma) != 4 or not all(c["HMMA"] for c in mma.values()) or not all(
+    if len(mma) != 2 * len(ssd_kernel.SHAPES) or not all(c["HMMA"] for c in mma.values()) or not all(
         c["LDGSTS"] for f, c in mma.items() if "ssd_scan_kernel" in f
     ):
         raise AssertionError(f"the ssd builds lack tensor-core MMAs or cp.async: {mma}")
@@ -778,24 +801,13 @@ def _profile(fn) -> dict:
     return _device_time(prof, wall_ms, 1)
 
 
-def _pass_ms(fn, marker: str, reps: int = 10) -> dict:
-    """Device ms per call of each kernel whose name holds ``marker``
-    (the launches behind one wrapper call), from the profiler's CUDA
-    activity over ``reps`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-        if marker in e.key and us:
-            out[e.key.split("namespace)::")[-1].split("(")[0]] = us / reps / 1e3
-    return out
+def _b5_passes(prof: dict, calls: int) -> dict:
+    """B5's passes, device ms per wrapper call, from a ``_profile`` of
+    ``calls`` calls (a profiled prefill makes one per Mamba-2 layer)."""
+    return {
+        n.split("namespace)::")[-1].split("(")[0]: ms / calls
+        for n, ms in prof["by_name_ms"].items() if "ssd_" in n
+    }
 
 
 def _device_time(prof, wall_ms: float, calls: int) -> dict:
@@ -2002,16 +2014,30 @@ def _ssd_cost(Bb, L, H, G, P, N, Q) -> tuple[float, float]:
     return nbytes, flops
 
 
-def _serve_lm(tag, cfg, server_for, gen, kernel_fn, reset) -> tuple[dict, dict]:
+def _by_kind(by_name: dict) -> dict:
+    """A profile's device ms summed by kind of kernel: B5, B6, cuBLAS
+    GEMMs, PyTorch's elementwise kernels, and the rest."""
+    kinds = {"B5": 0.0, "B6": 0.0, "gemm": 0.0, "elementwise": 0.0, "other": 0.0}
+    for name, ms in by_name.items():
+        kind = ("B5" if "ssd_" in name else "B6" if "flash" in name
+                else "gemm" if any(m in name for m in ("nvjet", "gemm", "cutlass", "xmma"))
+                else "elementwise" if "elementwise" in name else "other")
+        kinds[kind] += ms
+    return kinds
+
+
+def _serve_lm(tag, cfg, server_for, gen, kernels, card="") -> tuple[dict, dict, dict]:
     """``LMServer.generate`` over ``LM_BATCHES``: one warm-up, then
-    ``LM_REPS`` timed prefill-only and full calls per batch; the
-    kernel's launch counter, zeroed before the timed calls, must read
-    ``n_layers`` x the prefills run.  Then one profiled prefill and one
-    profiled generate of batch one.  Returns the report and the prompts
-    by (rows, length)."""
+    ``LM_REPS`` timed prefill-only and full calls per batch.  ``kernels``
+    holds (wrapper, launches per prefill, reset) for each kernel of the
+    path; each counter, zeroed before the timed calls, must read that
+    many x the prefills run (so decode launches none).  Then one profiled
+    prefill of each batch (``rec["profile_prefill"]``) and one profiled
+    generate of batch one.  Returns the report, the prompts by (rows,
+    length) and the servers by (rows, length)."""
     report = {"config": cfg.name, "params": cfg.num_params(), "batches": {}}
-    kname = kernel_fn.__name__
-    launches = 0
+    launches = {fn.__name__: 0 for fn, _, _ in kernels}
+    suffix = f" [{card}]" if card else ""
     prompts_by, servers = {}, {}
     for Bb, S, n_new in LM_BATCHES:
         server = servers[(Bb, S)] = server_for(S + n_new)
@@ -2021,7 +2047,8 @@ def _serve_lm(tag, cfg, server_for, gen, kernel_fn, reset) -> tuple[dict, dict]:
         server.generate(prompts, 1)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset()
+        for _, _, reset in kernels:
+            reset()
         pre, full, outs = [], [], []
         for _ in range(LM_REPS):
             t0 = time.perf_counter()
@@ -2030,13 +2057,16 @@ def _serve_lm(tag, cfg, server_for, gen, kernel_fn, reset) -> tuple[dict, dict]:
             t0 = time.perf_counter()
             outs.append(server.generate(prompts, n_new))
             full.append(time.perf_counter() - t0)
-        n_launch = kernel_fn.launches
         prefills = 2 * LM_REPS
-        if n_launch != cfg.n_layers * prefills:
-            raise AssertionError(
-                f"{kname} launched {n_launch} times for {prefills} prefills of {cfg.n_layers} layers"
-            )
-        launches += n_launch
+        n_launch = {}
+        for fn, per_prefill, _ in kernels:
+            n_launch[fn.__name__] = fn.launches
+            if fn.launches != per_prefill * prefills:
+                raise AssertionError(
+                    f"{fn.__name__} launched {fn.launches} times for {prefills} prefills, "
+                    f"{per_prefill} each"
+                )
+            launches[fn.__name__] += fn.launches
         for o in outs:
             if o.shape != (Bb, n_new) or not ((0 <= o) & (o < cfg.vocab)).all():
                 raise AssertionError(f"bad tokens {o!r}")
@@ -2061,22 +2091,103 @@ def _serve_lm(tag, cfg, server_for, gen, kernel_fn, reset) -> tuple[dict, dict]:
             f"max {max(pre) * 1e3:.2f}, n={len(pre)}) {rec['prefill_tokens_per_s']:.1f} tok/s; "
             f"decode {dec_s * 1e3:.3f} ms/token {rec['decode_tokens_per_s']:.1f} tok/s "
             f"(generate {n_new}: median {med_full * 1e3:.2f} ms); peak mem "
-            f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; {kname} launches {n_launch}"
+            f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; "
+            + ", ".join(f"{n} launches {c}" for n, c in n_launch.items()) + suffix
         )
     report["kernel_launches"] = launches
 
-    # where the time goes: one profiled prefill and one profiled generate
+    # where the time goes: a profiled prefill of each batch and one
+    # profiled generate of batch one
+    runs = [(f"{Bb}x{S}+{n}", "prefill", (Bb, S), 1) for Bb, S, n in LM_BATCHES]
     Bb, S, n_new = LM_BATCHES[0]
-    prompts = prompts_by[(Bb, S)]
-    for name, n in (("prefill", 1), ("generate", n_new)):
-        prof = _profile(lambda n=n: servers[(Bb, S)].generate(prompts, n))
-        report[f"profile_{name}"] = prof
+    runs.append((f"{Bb}x{S}+{n_new}", "generate", (Bb, S), n_new))
+    for key, name, shape, n in runs:
+        prof = _profile(lambda n=n, shape=shape: servers[shape].generate(prompts_by[shape], n))
+        report["batches"][key][f"profile_{name}"] = prof
+        if shape == (Bb, S):
+            report[f"profile_{name}"] = prof
         busy = ("not measured" if prof["busy_share"] is None
                 else f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.1%})")
-        print(f"profile: {tag} {name:8s} wall {prof['wall_ms']:.2f} ms, device busy {busy}")
+        print(f"profile: {tag} {name:8s} {key} wall {prof['wall_ms']:.2f} ms, device busy {busy}{suffix}")
         for kn, ms in prof["top_kernels_ms"]:
             print(f"profile:   {ms:9.3f} ms  {kn}")
-    return report, prompts_by
+        kinds = prof["by_kind_ms"] = _by_kind(prof["by_name_ms"])
+        print(f"profile: {tag} {name:8s} {key} by kind: "
+              + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items()) + suffix)
+    return report, prompts_by, servers
+
+
+def _ssd_launch_args(args, chunk) -> list[torch.Tensor]:
+    """A Mamba-2 block's SSD operands (x, dt, A, B, C) as ``ssd_ops.ssd``
+    hands them to B5: padded along L to a multiple of the chunk."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+
+    x, dt, A, B, C = args
+    x, dt, B, C = ssd_ops.pad_to_chunk(x, dt, B, C, chunk)
+    return [t.contiguous() for t in (x, dt, A, B, C)]
+
+
+def _b5_check(phase, args, chunk, card=""):
+    """B5 against its plain version on the same inputs: y and the final
+    state within ``SSD_RTOL`` (relative L2).  Returns (worst relative L2,
+    max abs error)."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    y_k, s_k = ssd_kernel.ssd_chunked_cuda(*args, chunk)
+    y_p, s_p = ssd_ref.ssd_chunked_ref(*args, chunk=chunk)
+    rel_y, rel_s = _rel_l2(y_k, y_p), _rel_l2(s_k, s_p)
+    mx = max(float(torch.max(torch.abs(y_k - y_p))), float(torch.max(torch.abs(s_k - s_p))))
+    Bb, L, H, P = args[0].shape
+    N = args[3].shape[3]
+    print(
+        f"{phase}: B5 ({chunk}, {P}, {N}) vs plain on layer-0 inputs {Bb}x{L}: "
+        f"y rel L2 {rel_y:.3g}, S rel L2 {rel_s:.3g}, max abs {mx:.3g}" + (f" [{card}]" if card else "")
+    )
+    if not (rel_y <= SSD_RTOL and rel_s <= SSD_RTOL):
+        raise AssertionError(f"B5 disagrees with its plain version (y {rel_y:.3g}, S {rel_s:.3g})")
+    return max(rel_y, rel_s), mx
+
+
+def _b5_row(phase, name, args, chunk, launches, passes, card="") -> dict:
+    """B5 checked (``_b5_check``) and timed beside its plain version, as a
+    ``kernel:`` row; ``passes`` are its passes' device ms per call in a
+    profiled prefill that launched it at this shape (``_b5_passes``)."""
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    rel, mx = _b5_check(phase, args, chunk, card)
+    Bb, L, H, P = args[0].shape
+    G, N = args[3].shape[2:]
+    ms = _time_ms(lambda: ssd_kernel.ssd_chunked_cuda(*args, chunk), 20)
+    plain_ms = _time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=chunk), 3)
+    print(f"{phase}: B5 {Bb}x{L} passes per call in a profiled prefill: "
+          + ", ".join(f"{n} {p_ms:.4f} ms" for n, p_ms in passes.items())
+          + (f" [{card}]" if card else ""))
+    cost = _ssd_cost(Bb, L, H, G, P, N, chunk)
+    # the products run on the TF32 tensor cores, three per product
+    # (3xTF32); the FMA pipes' float32 bound is kept beside it
+    bound, by = _bound_ms(*cost, rate=TF32_FLOPS / 3)
+    bound_f32, _ = _bound_ms(*cost)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd/kernel.py:82",
+        "launches": launches,
+        "max_abs_err": mx,
+        "max_err": mx,
+        "rel_l2": rel,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "bound_f32_fma_ms": bound_f32,
+        "library_ms": None,
+        "passes_ms": passes,
+        "shape": {"Bb": Bb, "L": L, "H": H, "G": G, "P": P, "N": N, "chunk": chunk},
+    }
 
 
 def phase_lm(seed: int) -> tuple[dict, list[dict]]:
@@ -2086,83 +2197,46 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
 
     from repro_torch import configs
     from repro_torch.kernels.ssd import kernel as ssd_kernel
-    from repro_torch.kernels.ssd import ref as ssd_ref
     from repro_torch.launch.serve import LMServer
     from repro_torch.models import mamba2
 
     cfg = configs.get_config("mamba2-370m")
     gen = torch.Generator("cuda").manual_seed(seed)
     server = LMServer(cfg, mamba2.init_params(cfg, gen, device="cuda"), device="cuda")
-    report, prompts_by = _serve_lm(
-        "lm", cfg, lambda max_len: server, gen, ssd_kernel.ssd_chunked_cuda,
-        ssd_kernel.reset_launches,
+    report, prompts_by, _ = _serve_lm(
+        "lm", cfg, lambda max_len: server, gen,
+        [(ssd_kernel.ssd_chunked_cuda, cfg.n_layers, ssd_kernel.reset_launches)],
     )
-    launches = report["kernel_launches"]
+    launches = report["kernel_launches"]["ssd_chunked_cuda"]
     prompts = prompts_by[LM_BATCHES[0][:2]]
 
-    # B5 against its plain version on layer 0's SSD inputs: batch one,
-    # the 2 x 1024 grid that batch two's padded prompts give it, one
-    # 2048-token prompt (Bb·H = 32 heads), and the (16, 16, 16) build
-    # that ``serve --mode lm`` runs on the smoke config
+    # B5 against its plain version on layer 0's SSD operands as the
+    # model launches it: batch one, batch two's 2 x 1000 prompts padded
+    # to the 2 x 1024 grid, one 2048-token prompt (Bb·H = 32 heads), and
+    # the (16, 16, 16) build that ``serve --mode lm`` runs on the smoke
+    # config; pass times from a profiled prefill of the same prompts
     def b5_inputs(m, c, toks):
         with torch.inference_mode():
             x0 = m.embed.to(c.compute_dtype)[toks]
-            return [t.contiguous() for t in m.layers[0].ssd_inputs(x0)]
-
-    def b5_check(args, chunk):
-        y_k, s_k = ssd_kernel.ssd_chunked_cuda(*args, chunk)
-        y_p, s_p = ssd_ref.ssd_chunked_ref(*args, chunk=chunk)
-        rel_y, rel_s = _rel_l2(y_k, y_p), _rel_l2(s_k, s_p)
-        mx = max(float(torch.max(torch.abs(y_k - y_p))), float(torch.max(torch.abs(s_k - s_p))))
-        Bb, L, H, P = args[0].shape
-        N = args[3].shape[3]
-        print(
-            f"lm: B5 ({chunk}, {P}, {N}) vs plain on layer-0 inputs {Bb}x{L}: "
-            f"y rel L2 {rel_y:.3g}, S rel L2 {rel_s:.3g}, max abs {mx:.3g}"
-        )
-        if not (rel_y <= SSD_RTOL and rel_s <= SSD_RTOL):
-            raise AssertionError(f"B5 disagrees with its plain version (y {rel_y:.3g}, S {rel_s:.3g})")
-        return max(rel_y, rel_s), mx
+            return _ssd_launch_args(m.layers[0].ssd_inputs(x0), c.chunk)
 
     model = server.model
+    server.generate(prompts[:1], 1)  # warm the 1 x 2048 shape before its profile
+    two = "x".join(map(str, LM_BATCHES[1][:2])) + f"+{LM_BATCHES[1][2]}"
     rows = []
-    for tag, toks in (("", prompts), ("[2x1024]", prompts[:2, :1024]), ("[1x2048]", prompts[:1])):
+    for tag, toks, prof in (
+        ("", prompts, report["profile_prefill"]),
+        ("[2x1024]", prompts_by[LM_BATCHES[1][:2]], report["batches"][two]["profile_prefill"]),
+        ("[1x2048]", prompts[:1], _profile(lambda: server.generate(prompts[:1], 1))),
+    ):
         args = b5_inputs(model, cfg, toks)
-        rel, mx = b5_check(args, cfg.chunk)
-        Bb, L, H, P = args[0].shape
-        G, N = args[3].shape[2:]
-        ms = _time_ms(lambda: ssd_kernel.ssd_chunked_cuda(*args, cfg.chunk), 20)
-        plain_ms = _time_ms(lambda: ssd_ref.ssd_chunked_ref(*args, chunk=cfg.chunk), 3)
-        passes = _pass_ms(lambda: ssd_kernel.ssd_chunked_cuda(*args, cfg.chunk), "ssd_")
-        print(f"lm: B5 {Bb}x{L} passes: " + ", ".join(f"{n} {ms:.4f} ms" for n, ms in passes.items()))
-        cost = _ssd_cost(Bb, L, H, G, P, N, cfg.chunk)
-        # the products run on the TF32 tensor cores, three per product
-        # (3xTF32); the FMA pipes' float32 bound is kept beside it
-        bound, by = _bound_ms(*cost, rate=TF32_FLOPS / 3)
-        bound_f32, _ = _bound_ms(*cost)
-        rows.append({
-            "name": f"ssd_chunked{tag}",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
-            "replaces": "src/repro/kernels/ssd/kernel.py:82",
-            "launches": launches,
-            "max_abs_err": mx,
-            "max_err": mx,
-            "rel_l2": rel,
-            "ms": ms,
-            "kernel_ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": by,
-            "bound_f32_fma_ms": bound_f32,
-                "library_ms": None,
-            "shape": {"Bb": Bb, "L": L, "H": H, "G": G, "P": P, "N": N, "chunk": cfg.chunk},
-        })
+        rows.append(_b5_row("lm", f"ssd_chunked{tag}", args, cfg.chunk, launches,
+                            _b5_passes(prof, cfg.n_layers)))
         del args
     scfg = configs.get_smoke_config("mamba2-370m")
     small = mamba2.init_params(scfg, gen, device="cuda")
     toks = torch.randint(0, scfg.vocab, (2, 64), generator=gen, device="cuda")
-    rel, mx = b5_check(b5_inputs(small, scfg, toks), scfg.chunk)
+    rel, mx = _b5_check("lm", b5_inputs(small, scfg, toks), scfg.chunk)
     report["b5_smoke_build"] = {"rel_l2": rel, "max_abs_err": mx, "shape": [2, 64]}
     del small
 
@@ -2192,6 +2266,87 @@ def _attn_cost(B, Sq, Sk, H, G, D, causal, itemsize) -> tuple[float, float]:
     n = min(Sq, Sk)
     pairs = n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk if causal else Sq * Sk
     return nbytes, 4 * D * B * H * pairs
+
+
+def _b6_check(phase, tag, q, k, v, causal, rtol, atol=None, card="") -> dict:
+    """B6 against its plain version; in bf16 also the worst row and the
+    max abs error against the plain version on float32 inputs."""
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    o_k = flash_kernel.flash_fwd_cuda(q, k, v, causal)
+    o_p = flash_ref.flash_ref(q, k, v, causal=causal)
+    rel = _rel_l2(o_k.float(), o_p.float())
+    mx = float(torch.max(torch.abs(o_k.float() - o_p.float())))
+    ok = rel <= rtol and (atol is None or mx <= atol) and bool(torch.isfinite(o_k).all())
+    res = {"rel_l2": rel, "max_abs_err": mx}
+    line = f"rel L2 {rel:.3g}, max abs {mx:.3g}"
+    if q.dtype == torch.bfloat16:
+        D = q.shape[-1]
+        o_f = flash_ref.flash_ref(q.float(), k.float(), v.float(), causal=causal)
+        err = (o_k.float() - o_f).reshape(-1, D)
+        row = float(torch.max(
+            torch.linalg.vector_norm(err, dim=1)
+            / torch.linalg.vector_norm(o_f.reshape(-1, D), dim=1).clamp_min(1e-30)
+        ))
+        abs_f = float(torch.max(torch.abs(err)))
+        vmax = float(torch.max(torch.abs(v.float())))
+        ok = ok and row <= FLASH_BF16_ROW_RTOL and abs_f <= FLASH_BF16_ABS_V * vmax
+        res.update(worst_row_rel_l2=row, max_abs_err_f32=abs_f, max_abs_v=vmax)
+        line += (f"; vs plain on float32 inputs: worst row rel L2 {row:.3g} "
+                 f"(<= {FLASH_BF16_ROW_RTOL:g}), max abs {abs_f:.3g} = {abs_f / vmax:.3g} max|v| "
+                 f"(<= {FLASH_BF16_ABS_V:g})")
+        del o_f, err
+    print(
+        f"{phase}: B6 {tag} q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} "
+        f"causal={causal} vs plain: {line}" + (f" [{card}]" if card else "")
+    )
+    if not ok:
+        raise AssertionError(f"B6 {tag} disagrees with its plain version: {res}")
+    return res
+
+
+def _b6_row(phase, name, q, k, v, launches, card="") -> dict:
+    """B6 in bf16 at a main path's causal shape, checked (``_b6_check``)
+    and timed beside its plain version and one
+    ``scaled_dot_product_attention`` call, as a ``kernel:`` row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.flash import ref as flash_ref
+
+    Bb, S, H, D = q.shape
+    G = k.shape[2]
+    res = _b6_check(phase, f"[{Bb}x{S}]", q, k, v, True, FLASH_BF16_RTOL, card=card)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = _time_ms(lambda: flash_kernel.flash_fwd_cuda(q, k, v, True), 20)
+    plain_ms = _time_ms(lambda: flash_ref.flash_ref(q, k, v, causal=True), 3)
+    lib_ms = _time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20
+    )
+    cost = _attn_cost(Bb, S, S, H, G, D, True, q.element_size())
+    bound, by = _bound_ms(*cost, rate=BF16_FLOPS)
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash/csrc/flash_wgmma.cu",
+        "replaces": "src/repro/kernels/flash/kernel.py:94",
+        "launches": launches,
+        "max_abs_err": res["max_abs_err"],
+        "max_err": res["max_abs_err"],
+        "rel_l2": res["rel_l2"],
+        "worst_row_rel_l2": res["worst_row_rel_l2"],
+        "max_abs_err_f32": res["max_abs_err_f32"],
+        "max_abs_v": res["max_abs_v"],
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": lib_ms,
+        "shape": {"B": Bb, "Sq": S, "Sk": S, "H": H, "G": G, "D": D,
+                  "dtype": "bfloat16", "causal": True},
+    }
 
 
 @contextlib.contextmanager
@@ -2290,23 +2445,20 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
     returns the report and the B6 kernel rows."""
     import dataclasses
 
-    import torch.nn.functional as F
-
     from repro_torch import configs
     from repro_torch.kernels.flash import kernel as flash_kernel
-    from repro_torch.kernels.flash import ref as flash_ref
     from repro_torch.launch.serve import LMServer
     from repro_torch.models import transformer
 
     cfg = configs.get_config("qwen2-1.5b")
     gen = torch.Generator("cuda").manual_seed(seed)
     model = transformer.init_params(cfg, gen, device="cuda")
-    report, prompts_by = _serve_lm(
+    report, prompts_by, _ = _serve_lm(
         "lm_dense", cfg,
         lambda max_len: LMServer(cfg, model, max_len=max_len, device="cuda"),
-        gen, flash_kernel.flash_fwd_cuda, flash_kernel.reset_launches,
+        gen, [(flash_kernel.flash_fwd_cuda, cfg.n_layers, flash_kernel.reset_launches)],
     )
-    launches = report["kernel_launches"]
+    launches = report["kernel_launches"]["flash_fwd_cuda"]
 
     def layer0_qkv(m, toks):
         with torch.inference_mode():
@@ -2320,76 +2472,12 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
         prompts_by[LM_BATCHES[0][:2]], report["batches"],
     )
 
-    def check(tag, q, k, v, causal, rtol, atol=None):
-        """B6 against its plain version; in bf16 also the worst row and the
-        max abs error against the plain version on float32 inputs."""
-        o_k = flash_kernel.flash_fwd_cuda(q, k, v, causal)
-        o_p = flash_ref.flash_ref(q, k, v, causal=causal)
-        rel = _rel_l2(o_k.float(), o_p.float())
-        mx = float(torch.max(torch.abs(o_k.float() - o_p.float())))
-        ok = rel <= rtol and (atol is None or mx <= atol) and bool(torch.isfinite(o_k).all())
-        res = {"rel_l2": rel, "max_abs_err": mx}
-        line = f"rel L2 {rel:.3g}, max abs {mx:.3g}"
-        if q.dtype == torch.bfloat16:
-            D = q.shape[-1]
-            o_f = flash_ref.flash_ref(q.float(), k.float(), v.float(), causal=causal)
-            err = (o_k.float() - o_f).reshape(-1, D)
-            row = float(torch.max(
-                torch.linalg.vector_norm(err, dim=1)
-                / torch.linalg.vector_norm(o_f.reshape(-1, D), dim=1).clamp_min(1e-30)
-            ))
-            abs_f = float(torch.max(torch.abs(err)))
-            vmax = float(torch.max(torch.abs(v.float())))
-            ok = ok and row <= FLASH_BF16_ROW_RTOL and abs_f <= FLASH_BF16_ABS_V * vmax
-            res.update(worst_row_rel_l2=row, max_abs_err_f32=abs_f, max_abs_v=vmax)
-            line += (f"; vs plain on float32 inputs: worst row rel L2 {row:.3g} "
-                     f"(<= {FLASH_BF16_ROW_RTOL:g}), max abs {abs_f:.3g} = {abs_f / vmax:.3g} max|v| "
-                     f"(<= {FLASH_BF16_ABS_V:g})")
-            del o_f, err
-        print(
-            f"lm_dense: B6 {tag} q {tuple(q.shape)} kv {tuple(k.shape)} {q.dtype} "
-            f"causal={causal} vs plain: {line}"
-        )
-        if not ok:
-            raise AssertionError(f"B6 {tag} disagrees with its plain version: {res}")
-        return res
-
     # B6 at the main path's shapes: layer 0's real q, k, v of both batches
     rows = []
     for Bb, S, _ in LM_BATCHES:
         q, k, v = layer0_qkv(model, prompts_by[(Bb, S)])
-        res = check(f"[{Bb}x{S}]", q, k, v, True, FLASH_BF16_RTOL)
-        G = k.shape[2]
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        ms = _time_ms(lambda: flash_kernel.flash_fwd_cuda(q, k, v, True), 20)
-        plain_ms = _time_ms(lambda: flash_ref.flash_ref(q, k, v, causal=True), 3)
-        lib_ms = _time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20
-        )
-        cost = _attn_cost(Bb, S, S, cfg.n_heads, G, cfg.hd, True, q.element_size())
-        bound, by = _bound_ms(*cost, rate=BF16_FLOPS)
-        rows.append({
-            "name": f"flash_fwd[{Bb}x{S}]",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/flash/csrc/flash_wgmma.cu",
-            "replaces": "src/repro/kernels/flash/kernel.py:94",
-            "launches": launches,
-            "max_abs_err": res["max_abs_err"],
-            "max_err": res["max_abs_err"],
-            "rel_l2": res["rel_l2"],
-            "worst_row_rel_l2": res["worst_row_rel_l2"],
-            "max_abs_err_f32": res["max_abs_err_f32"],
-            "max_abs_v": res["max_abs_v"],
-            "ms": ms,
-            "kernel_ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": by,
-            "library_ms": lib_ms,
-            "shape": {"B": Bb, "Sq": S, "Sk": S, "H": cfg.n_heads, "G": G, "D": cfg.hd,
-                      "dtype": "bfloat16", "causal": True},
-        })
-        del q, k, v, qt, kt, vt
+        rows.append(_b6_row("lm_dense", f"flash_fwd[{Bb}x{S}]", q, k, v, launches))
+        del q, k, v
 
     # the bf16 build on the sweep's shapes
     bf16 = {}
@@ -2399,29 +2487,29 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
             for S, n in ((Sq, H), (Sk, G), (Sk, G))
         )
         tag = f"bf16[{B}x{Sq}x{Sk},h{H},g{G},d{D},{'causal' if causal else 'full'}]"
-        bf16[tag] = check(tag, q, k, v, causal, FLASH_BF16_RTOL)
+        bf16[tag] = _b6_check("lm_dense", tag, q, k, v, causal, FLASH_BF16_RTOL)
     report["b6_bf16_checks"] = bf16
 
     # float32 builds: the reference test sweep's shapes (head dims 16 and
-    # 32, both mask settings, ragged lengths, the 40-vs-100 cross case)
-    # and the qwen2 smoke config's layer 0 (head dim 24), which
-    # ``serve --mode lm`` runs
+    # 32, both mask settings, ragged lengths, the 40-vs-100 cross case),
+    # head dim 160 ragged without the mask, and the qwen2 smoke config's
+    # layer 0 (head dim 24), which ``serve --mode lm`` runs
     f32 = {}
     for B, Sq, Sk, H, G, D, causal in (
         (2, 37, 37, 4, 2, 16, True), (2, 37, 37, 4, 4, 16, False),
         (2, 96, 96, 8, 4, 32, True), (2, 71, 71, 2, 2, 32, False),
-        (1, 40, 100, 4, 2, 16, False),
+        (1, 40, 100, 4, 2, 16, False), (1, 130, 130, 4, 2, 160, False),
     ):
         q = torch.randn((B, Sq, H, D), generator=gen, device="cuda")
         k = torch.randn((B, Sk, G, D), generator=gen, device="cuda")
         v = torch.randn((B, Sk, G, D), generator=gen, device="cuda")
         tag = f"f32[{B}x{Sq}x{Sk},h{H},g{G},d{D}]"
-        f32[tag] = check(tag, q, k, v, causal, FLASH_F32_RTOL, FLASH_F32_ATOL)
+        f32[tag] = _b6_check("lm_dense", tag, q, k, v, causal, FLASH_F32_RTOL, FLASH_F32_ATOL)
     scfg = configs.get_smoke_config("qwen2-1.5b")
     small = transformer.init_params(scfg, gen, device="cuda")
     toks = torch.randint(0, scfg.vocab, (2, 64), generator=gen, device="cuda")
-    f32["smoke[2x64,d24]"] = check(
-        "qwen2 smoke", *layer0_qkv(small, toks), True, FLASH_F32_RTOL, FLASH_F32_ATOL
+    f32["smoke[2x64,d24]"] = _b6_check(
+        "lm_dense", "qwen2 smoke", *layer0_qkv(small, toks), True, FLASH_F32_RTOL, FLASH_F32_ATOL
     )
     report["b6_f32_checks"] = f32
     del small
@@ -2441,6 +2529,105 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
     print(f"lm_dense: 2-layer f32 last logits, kernel vs plain route: rel L2 {rel:.3g}")
     if not (rel <= LM_RTOL and torch.isfinite(l_kernel).all()):
         raise AssertionError(f"kernel and plain routes disagree: rel L2 {rel:.3g}")
+    return report, rows
+
+
+def phase_lm_zamba(seed: int, card: str) -> tuple[dict, list[dict]]:
+    """Zamba-2 LM serving at zamba2-2.7b's published config (54 Mamba-2
+    layers, one shared attention block at 9 sites, bf16, random weights
+    from a seeded generator on the card): ``LMServer.generate`` on the
+    serving batches with B5 = 54 and B6 = 9 launches per prefill; B5's
+    (128, 64, 64) build and B6's head-dim-160 builds against their plain
+    versions on the path's own operands; a one-site float32 model at full
+    width on the kernel and plain routes.  Returns the report and the B5
+    and B6 kernel rows."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import transformer, zamba
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config("zamba2-2.7b")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    model = zamba.init_params(cfg, gen, device="cuda")
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"lm_zamba: {cfg.name}: {cfg.num_params()} parameters ({weights / 2**30:.2f} GiB bf16), "
+          f"{cfg.n_layers} Mamba-2 layers (d_model {cfg.d_model}, state {cfg.d_state}, "
+          f"{cfg.ssm_heads} heads), shared block at {cfg.n_segments} sites (width {cfg.attn_width}, "
+          f"{cfg.attn_heads} heads of {cfg.attn_head_dim}) [{card}]")
+    report, prompts_by, _ = _serve_lm(
+        "lm_zamba", cfg,
+        lambda max_len: LMServer(cfg, model, max_len=max_len, device="cuda"),
+        gen,
+        [(ssd_kernel.ssd_chunked_cuda, cfg.n_layers, ssd_kernel.reset_launches),
+         (flash_kernel.flash_fwd_cuda, cfg.n_segments, flash_kernel.reset_launches)],
+        card,
+    )
+    report["weight_bytes"] = weights
+    b5_launches = report["kernel_launches"]["ssd_chunked_cuda"]
+    b6_launches = report["kernel_launches"]["flash_fwd_cuda"]
+
+    def site0(toks):
+        """The first site's q, k, v and layer 0's SSD operands (its input
+        is the first site's output) for the prompts ``toks``."""
+        with torch.inference_mode():
+            B, S = toks.shape
+            x0 = model._embed(toks)
+            xc = torch.cat([x0, x0], dim=-1)
+            q, k, v = model.shared.qkv(xc, model._positions(B, S))
+            x1 = model.shared.finish(x0, xc, transformer.causal_attention(cfg, q, k, v))
+            return q, k, v, _ssd_launch_args(model.layers[0].ssd_inputs(x1), cfg.chunk)
+
+    # on each serving batch's prompts: B5 on layer 0's operands as the
+    # model launches it (batch two's 2 x 1000 padded to 2 x 1024), with
+    # its passes from that batch's profiled prefill; B6 on the first
+    # site's q, k, v (attention takes S = 1000 unpadded), in bf16 and
+    # upcast to float32 (the FMA build)
+    rows, report["b6_f32_d160"] = [], {}
+    for Bb, S, n_new in LM_BATCHES:
+        tag = f"{Bb}x{S}"
+        q, k, v, args = site0(prompts_by[(Bb, S)])
+        passes = _b5_passes(report["batches"][f"{tag}+{n_new}"]["profile_prefill"], cfg.n_layers)
+        rows.append(_b5_row("lm_zamba", f"ssd_chunked[zamba {tag}]", args, cfg.chunk, b5_launches,
+                            passes, card))
+        rows.append(_b6_row("lm_zamba", f"flash_fwd[zamba {tag},d160]", q, k, v, b6_launches, card))
+        report["b6_f32_d160"][tag] = _b6_check(
+            "lm_zamba", f"f32 [{tag},d160]", q.float(), k.float(), v.float(), True,
+            FLASH_F32_RTOL, FLASH_F32_ATOL, card=card,
+        )
+        del q, k, v, args
+    del model
+    torch.cuda.empty_cache()
+
+    # one site at full width in float32: kernel routes == plain routes
+    cfg1 = dataclasses.replace(
+        cfg, n_layers=cfg.shared_every, param_dtype=torch.float32, compute_dtype=torch.float32
+    )
+    m_kernel = zamba.init_params(cfg1, gen, device="cuda")
+    m_plain = zamba.Zamba(dataclasses.replace(cfg1, ssd_impl="chunked", attn_impl="blockwise"), "cuda")
+    m_plain.load_state_dict(m_kernel.state_dict())
+    toks = prompts_by[LM_BATCHES[1][:2]]
+    with torch.inference_mode():
+        l_k, c_k = m_kernel.prefill(toks, max_len=toks.shape[1] + 1)
+        l_p, c_p = m_plain.prefill(toks, max_len=toks.shape[1] + 1)
+        nxt = l_p.argmax(-1)[:, None]
+        d_k, _ = m_kernel.decode_step(c_k, nxt)
+        d_p, _ = m_plain.decode_step(c_p, nxt)
+    rel_last, rel_dec = _rel_l2(l_k, l_p), _rel_l2(d_k, d_p)
+    report["f32_one_site"] = {"last_logits_rel_l2": rel_last, "decode_logits_rel_l2": rel_dec}
+    print(f"lm_zamba: one-site f32 model ({cfg1.n_layers} layers) {toks.shape[0]}x{toks.shape[1]}, kernel vs "
+          f"plain routes: last logits rel L2 {rel_last:.3g}, one decode step {rel_dec:.3g} "
+          f"(<= {LM_RTOL:g}) [{card}]")
+    if not (rel_last <= LM_RTOL and rel_dec <= LM_RTOL and torch.isfinite(l_k).all()
+            and torch.isfinite(d_k).all()):
+        raise AssertionError(f"zamba kernel and plain routes disagree: {report['f32_one_site']}")
+    del m_kernel, m_plain, c_k, c_p
+    torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    print(f"lm_zamba: phase {report['seconds']:.1f} s [{card}]")
     return report, rows
 
 
@@ -3272,7 +3459,7 @@ def main() -> int:
         "stmul": kernel, "ssd": ssd_kernel, "flash": flash_kernel, "conv3d": conv_kernel,
     })}
     report["build"]["flash_checks"] = check_flash_build(flash_kernel, report["build"]["flash"]["path"])
-    report["build"]["ssd_sass"] = check_ssd_build(report["build"]["ssd"]["path"])
+    report["build"]["ssd_sass"] = check_ssd_build(ssd_kernel, report["build"]["ssd"]["path"])
     report["build"]["conv3d_sass"] = check_conv3d_build(
         report["build"]["conv3d"]["path"], report["build"]["conv3d"]["warnings"])
     report["serve"] = phase_serve(kernel, args.seed)
@@ -3296,6 +3483,8 @@ def main() -> int:
     ).stdout.strip()
     report["mesh"], mesh_rows = phase_mesh(kernel, ref, args.seed, card)
     rows += mesh_rows
+    report["lm_zamba"], zamba_rows = phase_lm_zamba(args.seed, card)
+    rows += zamba_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

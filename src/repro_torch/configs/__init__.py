@@ -13,6 +13,7 @@ import importlib
 
 PORTED = (
     "granite_8b", "llama3_405b", "mamba2_370m", "nemotron_4_15b", "qwen2_1_5b", "sthc_kth",
+    "zamba2_2_7b",
 )
 
 

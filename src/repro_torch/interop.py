@@ -4,9 +4,10 @@
 :class:`~repro_torch.core.engine.FusedGrating` from a reference
 grating's fields passed as numpy arrays plus its metadata, so a test can
 hold port *queries* against reference queries on the very same recorded
-grating, apart from record parity.  :func:`mamba2_params_from_numpy`
-and :func:`transformer_params_from_numpy` load a reference Mamba-2 or
-dense-transformer parameter tree into the port's module, and
+grating, apart from record parity.  :func:`mamba2_params_from_numpy`,
+:func:`transformer_params_from_numpy` and :func:`zamba_params_from_numpy`
+load a reference Mamba-2, dense-transformer or Zamba-2 parameter tree
+into the port's module, and
 :func:`hybrid_params_from_numpy` the hybrid 3-D CNN's parameters.  Tenant kernel
 sets are numpy on both sides and need no conversion.  All take
 ``device=None`` to mean the card, as every port entry point does.
@@ -20,7 +21,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import hybrid
 from repro_torch.core.engine import FusedGrating
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, transformer, zamba
 
 
 def _to_torch(arr, device) -> torch.Tensor | None:
@@ -123,6 +124,38 @@ def transformer_params_from_numpy(
             f"layers hold {sorted(params['layers'])}, cfg {cfg.name!r} has {sorted(fields)}"
         )
     _load(model, params, cfg, fields)
+    return model
+
+
+@torch.no_grad()
+def zamba_params_from_numpy(params: dict, cfg: zamba.ZambaConfig, device=None) -> zamba.Zamba:
+    """The port's :class:`~repro_torch.models.zamba.Zamba` holding a
+    reference parameter tree.
+
+    ``params`` is the reference ``init_params`` tree with numpy leaves:
+    ``embed``, ``final_norm``, ``lm_head`` when the embeddings are not
+    tied, ``layers`` mapping each of ``mamba2.LAYER_FIELDS`` to an array
+    stacked as (n_segments, shared_every, ...), flattened here onto the
+    ``n_layers`` blocks in order, and ``shared`` mapping each of
+    ``zamba.SHARED_FIELDS`` to its array.  A field that is missing, extra,
+    or of another shape or dtype than the port's module holds for ``cfg``
+    raises a ``ValueError`` that names it."""
+    model = zamba.Zamba(cfg, resolve_device(device))
+    for group, want in (("layers", mamba2.LAYER_FIELDS), ("shared", zamba.SHARED_FIELDS)):
+        if set(params[group]) != set(want):
+            raise ValueError(f"{group} hold {sorted(params[group])}, cfg {cfg.name!r} has {sorted(want)}")
+    lead = (cfg.n_segments, cfg.shared_every)
+    layers = {}
+    for name in mamba2.LAYER_FIELDS:
+        arr = np.asarray(params["layers"][name])
+        if arr.shape[:2] != lead:
+            raise ValueError(
+                f"layers.{name} stacks {arr.shape[:2]}, cfg has (n_segments, shared_every) = {lead}"
+            )
+        layers[name] = arr.reshape((-1,) + arr.shape[2:])
+    _load(model, {**params, "layers": layers}, cfg, mamba2.LAYER_FIELDS)
+    for name in zamba.SHARED_FIELDS:
+        _put(getattr(model.shared, name), params["shared"][name], f"shared.{name}")
     return model
 
 

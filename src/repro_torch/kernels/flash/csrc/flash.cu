@@ -44,7 +44,7 @@
 // Q, K and P are read as float4 along their length by 8 lanes at a
 // time; the +4 pad makes those 8 rows start in 8 distinct 16-byte bank
 // groups (D/4 + 1 is odd for every D here, a multiple of 8).  At D = 128:
-// 98 KB, two blocks per SM.
+// 98 KB, two blocks per SM; at D = 160: 122 KB, one.
 //
 // Bound.  Float32 has no dense tensor-core path that keeps 1e-5 (TF32
 // keeps about three decimal digits; 3×TF32 tiles would be the step), so
@@ -277,6 +277,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
     case 24: return launch<24>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // qwen2 smoke
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // granite smoke
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // every full width
+    case 160: return launch<160>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // zamba2 shared block
     default: return cudaErrorInvalidValue;
   }
 }
@@ -287,6 +288,7 @@ int smem_f32(int D) {
     case 24: return (int)Plan<24>::bytes;
     case 32: return (int)Plan<32>::bytes;
     case 128: return (int)Plan<128>::bytes;
+    case 160: return (int)Plan<160>::bytes;
     default: return -1;
   }
 }

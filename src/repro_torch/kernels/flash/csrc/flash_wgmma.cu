@@ -33,10 +33,10 @@
 // Design, point by point:
 //
 // 1. Tensor cores.  One warpgroup (four warps) owns a block's 64 query
-//    rows; a kv tile is 64 keys.  S = Q·Kᵀ is D/16 wgmma m64n64k16 with
+//    rows; a kv tile is 64 keys.  S = Q·Kᵀ is ⌈D/16⌉ wgmma m64n64k16 with
 //    both operands read from shared memory through descriptors; O += P·V
-//    is four wgmma m64nDk16 (D rounded up to 16) with P from registers
-//    and V from shared memory.  bf16 operands, float32 accumulators: the
+//    is four wgmma m64nDPk16 (DP, point 3) with P from registers and V
+//    from shared memory.  bf16 operands, float32 accumulators: the
 //    product of two bf16 values is exact in float32, so only the order of
 //    the sums changes.
 // 2. An asynchronous K/V ring.  Q is loaded once per block; K and V come
@@ -48,18 +48,23 @@
 //    writes and wgmma reads through the async proxy, so each thread
 //    fences the proxies before that barrier.  Shared memory holds bf16
 //    only: at D 128 Q is 16 KB and a stage 32 KB, 112 KB in all, two
-//    blocks per SM.
-// 3. The layout wgmma reads.  A row of DP = D rounded up to 16 columns
-//    (24 → 32; the zero columns add nothing to the dots) is cut into
-//    halves of at most 64 columns (128 bytes); a tile is its halves one
-//    after the other, each 64 rows of one half-row.  Inside a half the
+//    blocks per SM; at D 160 (zamba2-2.7b's shared block, DP 192) Q is
+//    24 KB and a stage 48 KB, 169 KB, one block per SM.
+// 3. The layout wgmma reads.  A row of DP columns (D rounded up to 16 or
+//    32 up to D 32, else to a multiple of 64: 24 → 32, 160 → 192; S stops
+//    at ⌈D/16⌉ k-steps and the output's zero columns are never stored) is
+//    cut into "halves" of at most 64 columns (128 bytes; three at DP
+//    192); a tile is its halves one after the other, each 64 rows of one
+//    half-row.  Inside a half the
 //    16-byte chunks are XOR-swizzled by the row (the 128-, 64- or 32-byte
 //    swizzle for half-rows of 128, 64 or 32 bytes), which is the
 //    canonical layout the descriptors name: Q and K are read K-major
 //    (rows are queries or keys, the dot runs along them; 8-row groups
 //    SBO apart, a k-step of 16 columns 32 bytes further on), V MN-major
 //    (the transpose flag: rows are keys, the output columns run along
-//    them; halves LBO apart, 8-key groups SBO apart).  Tiles start on
+//    them; halves LBO apart, 8-key groups SBO apart).  At D 160 the P·V
+//    product is one m64n192k16 per k-step into 96 float32 accumulators a
+//    thread, a sixth of it on the zero columns.  Tiles start on
 //    1024-byte boundaries so that the swizzle lines up with the address
 //    bits the hardware XORs.
 // 4. Softmax in registers.  The accumulator of S gives a thread two rows
@@ -103,9 +108,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Plan {
-  static_assert(D % 8 == 0 && D <= 128, "head dim must be a multiple of 8 up to 128");
-  static constexpr int DP = (D + 15) / 16 * 16;      // shared row length, zero-padded
-  static_assert(DP == 16 || DP == 32 || DP % 64 == 0, "no wgmma layout for this head dim");
+  static_assert(D % 8 == 0 && D <= 192, "head dim must be a multiple of 8 up to 192");
+  // shared row length, zero-padded to a wgmma layout: one half of 16 or
+  // 32 columns, else halves of 64
+  static constexpr int DP = D <= 16 ? 16 : D <= 32 ? 32 : (D + 63) / 64 * 64;
+  static constexpr int KS = (D + 15) / 16;           // k-steps of S = Q·Kᵀ (zero columns past them skipped)
   static constexpr int HC = DP < 64 ? DP : 64;       // columns of a half-row
   static constexpr int CPH = HC / 8;                 // 16-byte chunks of a half-row
   static constexpr int RB = 2 * HC;                  // bytes of a half-row
@@ -215,6 +222,15 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
+__device__ __forceinline__ void wgmma_pv(float (&d)[96], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&t);
@@ -306,7 +322,7 @@ flash_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const
     pin(s);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < P::DP / 16; ++ks) {
+    for (int ks = 0; ks < P::KS; ++ks) {
       const uint32_t koff = (ks * 16 / P::HC) * P::HALF * 2 + (ks * 16 % P::HC) * 2;
       wgmma_qk(s, desc<D>(q_addr + koff, 16, 8 * P::RB), desc<D>(k_addr + koff, 16, 8 * P::RB));
     }
@@ -421,6 +437,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     case 24: return launch<24>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
+    case 160: return launch<160>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -432,6 +449,7 @@ int smem_bytes(int D) {
     case 24: return (int)Plan<24>::bytes;
     case 32: return (int)Plan<32>::bytes;
     case 128: return (int)Plan<128>::bytes;
+    case 160: return (int)Plan<160>::bytes;
     default: return -1;
   }
 }

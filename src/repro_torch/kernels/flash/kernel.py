@@ -34,9 +34,10 @@ from repro_torch.kernels._build import F32, I32, VP, CudaLibrary
 Tensor = torch.Tensor
 
 # head dims the kernel is instantiated for: 128 is every dense config's
-# full width; 24, 32 and 16 are the qwen2, granite and llama3/nemotron
-# smoke configs (and the reference test sweep's 16 and 32)
-HEAD_DIMS = (16, 24, 32, 128)
+# full width, 160 zamba2-2.7b's shared attention block (2 x 2560 / 32);
+# 24, 32 and 16 are the qwen2, granite and llama3/nemotron smoke configs
+# (and the reference test sweep's 16 and 32; 32 is also zamba2's smoke)
+HEAD_DIMS = (16, 24, 32, 128, 160)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # which kernel serves each (dtype, head dim): "wgmma" is the tensor-core
@@ -53,16 +54,22 @@ WGMMA_STAGES = 3
 SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory one H100 block may have (227 KB)
 
 
+def wgmma_row(d: int) -> int:
+    """Columns of a shared-memory row of the wgmma kernel at head dim
+    ``d``, zero-padded to a layout ``wgmma`` reads: 16 or 32 up to 32,
+    else a multiple of 64 (24 → 32, 160 → 192)."""
+    return 16 if d <= 16 else 32 if d <= 32 else -(-d // 64) * 64
+
+
 def smem_bytes(dtype: torch.dtype, d: int) -> int:
     """Dynamic shared memory of the build serving ``(dtype, d)``, as its
     source computes it (``flash_smem_bytes`` on the card returns the same).
 
-    wgmma: bf16 rows of ``d`` rounded up to 16, Q and the ring of (K, V)
-    stages, and 1024 bytes to align them; fma: float32 Q and K rows
+    wgmma: bf16 rows of :func:`wgmma_row` columns, Q and the ring of
+    (K, V) stages, and 1024 bytes to align them; fma: float32 Q and K rows
     padded by 4, P (64 × 68) over K's space, and V."""
     if ROUTES[(dtype, d)] == "wgmma":
-        dp = -(-d // 16) * 16
-        return 2 * dp * (BQ + 2 * WGMMA_STAGES * BK) + 1024
+        return 2 * wgmma_row(d) * (BQ + 2 * WGMMA_STAGES * BK) + 1024
     ld = d + 4
     return 4 * (BQ * ld + max(BK * ld, BQ * (BK + 4)) + BK * d)
 

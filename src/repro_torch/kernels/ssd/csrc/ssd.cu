@@ -29,10 +29,12 @@
 //      the scores in registers, never in shared memory.
 // Pass 1 runs one block per (b, h, c), two per SM.  Pass 3 runs one
 // block per (b, c, g) and run of HB heads of group g (kernel.py
-// scan_heads_per_block: 8 at 4 × 2048, 2 at 2 × 1024): C and B belong to
+// scan_heads_per_block: 8 at 4 × 2048, 2 at 2 × 1024 with mamba2-370m's
+// 32 heads, 16 and 4 with zamba2-2.7b's 80): C and B belong to
 // the group, so they are staged, and the raw scores C·Bᵀ formed, once
 // per run, and each head's x and S_in are copied while the previous head
-// computes; Bb·H·nc / HB blocks (256 at 4 × 2048 and at 2 × 1024).  The
+// computes; Bb·H·nc / HB blocks (256 at 4 × 2048 and at 2 × 1024; 320
+// with 80 heads).  The
 // workspace (kernel.py ssd_workspace_floats) is the wrapper's
 // torch.empty: Bb·H·nc·(P·N + Q) floats, ΔS / S_in by (b, h, chunk),
 // then seg.
@@ -53,7 +55,9 @@
 // stride ≡ 8 (mod 32), pass 3 stores C, B and S_in with stride N + 4 and
 // X with stride P + 4.  At (128, 64, 128) pass 1 holds x and B (108,032
 // bytes: two blocks of 8 warps per SM) and pass 3 C, B, X and S_in
-// (205,312 bytes: one block of 8 warps per SM).  In pass 3 warp w takes row tile w
+// (205,312 bytes: one block of 8 warps per SM); at zamba2-2.7b's
+// (128, 64, 64) pass 1 holds 75,264 bytes (warps 4 along p × 2 along n,
+// 4 n tiles each) and pass 3 123,392 (one block per SM).  In pass 3 warp w takes row tile w
 // for w < 4 and 11 − w otherwise, so the two warps that share an SM
 // sub-partition carry equal causal work.
 //
@@ -62,7 +66,9 @@
 // readout and the state update, Q(Q+1)P + 4QNP FLOPs: 10.9 GFLOP against
 // 148 MB of inputs and outputs at Bb = 4, L = 2048: compute, at 495
 // TFLOP/s TF32 ÷ 3 for the split (chip_smoke.py's _ssd_cost; it states
-// both this and the float32 FMA bound).
+// both this and the float32 FMA bound).  zamba2-2.7b's (128, 64, 64) with
+// 80 heads in one group is 16.2 GFLOP against 347.6 MB at Bb = 4, L =
+// 2048: bytes, 0.104 ms at 3.35 TB/s (0.098 ms at TF32 ÷ 3).
 //
 // Numerics.  seg is the plain version's sequential float32 cumsum, with
 // the product dt·A and each sum rounded as torch rounds them, so the
@@ -552,7 +558,9 @@ int ssd_chunked(const float* x, const float* dt, const float* A, const float* B,
   if (G < 1 || H % G != 0 || HB < 1 || (H / G) % HB != 0) return cudaErrorInvalidValue;
   if (Q == 128 && P == 64 && N == 128)  // mamba2-370m
     return launch<128, 64, 128>(x, dt, A, B, C, y, s_out, ws, Bb, nc, H, G, HB, s);
-  if (Q == 16 && P == 16 && N == 16)  // mamba2-370m smoke config
+  if (Q == 128 && P == 64 && N == 64)  // zamba2-2.7b
+    return launch<128, 64, 64>(x, dt, A, B, C, y, s_out, ws, Bb, nc, H, G, HB, s);
+  if (Q == 16 && P == 16 && N == 16)  // mamba2-370m and zamba2-2.7b smoke configs
     return launch<16, 16, 16>(x, dt, A, B, C, y, s_out, ws, Bb, nc, H, G, HB, s);
   return cudaErrorInvalidValue;
 }

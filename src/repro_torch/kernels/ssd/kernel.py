@@ -32,8 +32,9 @@ from repro_torch.kernels._build import I32, VP, CudaLibrary
 Tensor = torch.Tensor
 
 # (chunk, head dim P, state N) the kernel is instantiated for: mamba2-370m's
-# published chunk 128, head dim 64 and state 128, and its smoke config's 16s
-SHAPES = {(128, 64, 128), (16, 16, 16)}
+# published chunk 128, head dim 64 and state 128, zamba2-2.7b's state 64,
+# and the smoke configs' 16s
+SHAPES = {(128, 64, 128), (128, 64, 64), (16, 16, 16)}
 
 _LIB = CudaLibrary(
     "ssd",

@@ -30,6 +30,18 @@ def _on_cuda(t: Tensor) -> bool:
     raise ValueError(f"ssd has no kernel for device {t.device}")
 
 
+def pad_to_chunk(x: Tensor, dt: Tensor, B: Tensor, C: Tensor, chunk: int):
+    """x, dt, B, C padded along L to a multiple of ``chunk`` with zeros
+    (dt = 0: unit decay, zero input), as :func:`ssd` hands them on."""
+    pad = (-x.shape[1]) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    return x, dt, B, C
+
+
 def ssd(
     x: Tensor,
     dt: Tensor,
@@ -49,12 +61,7 @@ def ssd(
     Returns (y (Bb, L, H, P), final state (Bb, H, P, N)).
     """
     L = x.shape[1]
-    pad = (-L) % chunk
-    if pad:
-        x = F.pad(x, (0, 0, 0, 0, 0, pad))
-        dt = F.pad(dt, (0, 0, 0, pad))
-        B = F.pad(B, (0, 0, 0, 0, 0, pad))
-        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    x, dt, B, C = pad_to_chunk(x, dt, B, C, chunk)
     if impl == "kernel":
         if initial_state is not None:
             raise NotImplementedError(

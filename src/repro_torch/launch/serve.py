@@ -1366,8 +1366,10 @@ class LMServer:
     ``interop.*_params_from_numpy``); it is moved to ``device`` (None =
     the card).  ``max_len`` is the KV cache's length in positions: a
     dense transformer's prompt plus generated tokens must fit in it (its
-    decode raises a ``ValueError`` past it).  Mamba-2 ignores it: an SSM
-    state does not grow with the sequence."""
+    decode raises a ``ValueError`` past it).  Zamba-2 keeps one such KV
+    cache per shared-block site (``n_segments`` of them), so ``max_len``
+    bounds it the same way and sizes it ``n_segments`` times over.
+    Mamba-2 ignores it: an SSM state does not grow with the sequence."""
 
     def __init__(self, cfg, params: torch.nn.Module, max_len: int = 128, device=None):
         self.device = resolve_device(device)

@@ -274,6 +274,15 @@ def init_params(
     device = resolve_device(device)
     g = generator if generator is not None else torch.Generator(device).manual_seed(0)
     model = Mamba2(cfg, device)
+    fill_params(model, cfg, g)
+    return model
+
+
+@torch.no_grad()
+def fill_params(model: nn.Module, cfg: Mamba2Config, g: torch.Generator) -> None:
+    """Draw the reference's init distributions from ``g`` into ``model``'s
+    ``embed``, ``final_norm``, ``lm_head`` (untied only) and its
+    :class:`Mamba2Block` ``layers`` (Zamba-2 fills its backbone with it)."""
     pd, H = cfg.param_dtype, cfg.ssm_heads
 
     def put(p: nn.Parameter, value: Tensor) -> None:
@@ -299,4 +308,3 @@ def init_params(
         blk.ln.fill_(1.0)
         blk.D.fill_(1.0)
         blk.norm_w.fill_(1.0)
-    return model

@@ -10,10 +10,12 @@ from __future__ import annotations
 
 from types import ModuleType
 
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import mamba2, transformer, zamba
 
-# most-derived first: Mamba2Config subclasses TransformerConfig
+# most-derived first: ZambaConfig subclasses Mamba2Config, which
+# subclasses TransformerConfig
 _DISPATCH: list[tuple[type, ModuleType]] = [
+    (zamba.ZambaConfig, zamba),
     (mamba2.Mamba2Config, mamba2),
     (transformer.TransformerConfig, transformer),
 ]
@@ -26,5 +28,6 @@ def get_model(cfg) -> ModuleType:
     family = getattr(cfg, "family", None)
     raise TypeError(
         f"model family {family!r} ({type(cfg).__name__}) is not ported to "
-        "repro_torch yet; ported: 'ssm' (Mamba2Config), 'dense' (TransformerConfig)"
+        "repro_torch yet; ported: 'hybrid' (ZambaConfig), 'ssm' (Mamba2Config), "
+        "'dense' (TransformerConfig)"
     )

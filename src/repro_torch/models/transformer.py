@@ -86,6 +86,15 @@ class TransformerConfig:
         return self.n_layers * per_layer + emb + D
 
 
+def causal_attention(cfg: TransformerConfig, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+    """Causal attention of a full sequence by ``cfg.attn_impl``."""
+    if cfg.attn_impl == "kernel":
+        return flash_ops.flash_attention(q, k, v, True)
+    if cfg.attn_impl == "blockwise":
+        return common.blockwise_attention(q, k, v, causal=True, block_k=cfg.block_k)
+    raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}")
+
+
 def _param(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
 
@@ -135,15 +144,6 @@ class TransformerBlock(nn.Module):
         k = common.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def attend(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
-        """Causal attention of a full sequence by the config's route."""
-        cfg = self.cfg
-        if cfg.attn_impl == "kernel":
-            return flash_ops.flash_attention(q, k, v, True)
-        if cfg.attn_impl == "blockwise":
-            return common.blockwise_attention(q, k, v, causal=True, block_k=cfg.block_k)
-        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}")
-
     def finish(self, x: Tensor, attn: Tensor) -> Tensor:
         """Output projection and residual, then the MLP and its residual."""
         cfg = self.cfg
@@ -160,7 +160,7 @@ class TransformerBlock(nn.Module):
     def forward(self, x: Tensor, positions: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         """Full-sequence layer (B, S, D) → (x', k, v)."""
         q, k, v = self.qkv(x, positions)
-        return self.finish(x, self.attend(q, k, v)), k, v
+        return self.finish(x, causal_attention(self.cfg, q, k, v)), k, v
 
 
 class Transformer(nn.Module):

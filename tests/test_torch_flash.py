@@ -83,6 +83,17 @@ def test_flash_cross_lengths():
     np.testing.assert_allclose(got.numpy(), np.asarray(r_ref.flash_ref(*J(*ins), causal=False)), atol=3e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_head_dim_160_matches_reference(causal):
+    """zamba2-2.7b's shared-block head dim (2 x 2560 / 32), ragged length,
+    GQA, against the reference's Pallas kernel and plain version."""
+    ins = _qkv(160, 2, 70, 70, 4, 2, 160)
+    got = t_ops.flash_attention(*T(*ins), causal, None)
+    assert got.shape == (2, 70, 4, 160)
+    np.testing.assert_allclose(got.numpy(), np.asarray(r_ops.flash_attention(*J(*ins), causal, None)), atol=3e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(r_ref.flash_ref(*J(*ins), causal=causal)), atol=3e-5)
+
+
 def test_flash_softmax_scale_and_bf16():
     """An explicit scale, and bf16 inputs: the plain version scales q in
     bf16 before its float32-accumulated dot, as the reference does."""
@@ -137,7 +148,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="no kernel for dtype"):
         t_kernel.flash_fwd_cuda(q.half(), k.half(), v.half())
     assert t_kernel.flash_fwd_cuda.launches == 0
-    assert t_kernel.HEAD_DIMS == (16, 24, 32, 128)
+    assert t_kernel.HEAD_DIMS == (16, 24, 32, 128, 160)
 
 
 def test_routes_send_bf16_to_the_wgmma_kernel():
@@ -147,20 +158,29 @@ def test_routes_send_bf16_to_the_wgmma_kernel():
 
 
 def test_head_dims_and_dtypes_unchanged():
-    assert t_kernel.HEAD_DIMS == (16, 24, 32, 128)
+    assert t_kernel.HEAD_DIMS == (16, 24, 32, 128, 160)
     assert t_kernel.DTYPES == {torch.float32: 0, torch.bfloat16: 1}
 
 
-@pytest.mark.parametrize("dtype,d", list(itertools.product((torch.float32, torch.bfloat16), (16, 24, 32, 128))))
+# bf16 shared rows, zero-padded to a layout wgmma reads: 16 or 32 columns
+# up to 32, else a multiple of 64
+WGMMA_ROW = {16: 16, 24: 32, 32: 32, 128: 128, 160: 192}
+
+
+@pytest.mark.parametrize("dtype,d", list(itertools.product((torch.float32, torch.bfloat16), (16, 24, 32, 128, 160))))
 def test_smem_plan_fits_one_block(dtype, d):
-    """Every build's dynamic shared memory fits one block (227 KB), and
-    two blocks of it fit one SM's 228 KB (each block holds 1 KB more)."""
+    """Every build's dynamic shared memory fits one block (227 KB); up to
+    head dim 128 two blocks of it fit one SM's 228 KB (each block holds 1
+    KB more), at 160 (zamba2-2.7b's shared block) one."""
     n = t_kernel.smem_bytes(dtype, d)
     assert 0 < n <= t_kernel.SMEM_PER_BLOCK
-    assert 2 * (n + 1024) <= 228 * 1024
-    if dtype == torch.bfloat16:  # bf16 rows padded to 16: 24 plans as 32
-        dp = -(-d // 16) * 16
+    assert (2 * (n + 1024) <= 228 * 1024) == (d <= 128)
+    if dtype == torch.bfloat16:
+        dp = WGMMA_ROW[d]
+        assert t_kernel.wgmma_row(d) == dp
         assert n == 2 * dp * (64 + 2 * t_kernel.WGMMA_STAGES * 64) + 1024
+    else:  # Q and K rows padded by 4, P over K's space, V
+        assert n == 4 * (64 * (d + 4) + max(64 * (d + 4), 64 * 68) + 64 * d)
 
 
 def test_plan_mirrors_the_cuda_sources():
@@ -253,7 +273,7 @@ ROW_RTOL, ABS_V = 1e-2, 5e-3
 BF16_SWEEP = [
     (2, 37, 37, 4, 4, 16, True), (2, 37, 37, 4, 2, 16, False), (1, 40, 100, 4, 2, 16, False),
     (1, 40, 100, 4, 2, 16, True), (1, 100, 40, 4, 2, 32, True), (2, 71, 71, 6, 1, 32, False),
-    (2, 130, 130, 6, 1, 24, False), (1, 300, 300, 4, 4, 128, True),
+    (2, 130, 130, 6, 1, 24, False), (1, 300, 300, 4, 4, 128, True), (1, 130, 130, 4, 2, 160, True),
 ]
 
 

@@ -217,7 +217,8 @@ new = ("repro_torch.kernels.conv3d.kernel", "repro_torch.kernels.conv3d.ops",
        "repro_torch.optim.adamw", "repro_torch.optim.schedule",
        "repro_torch.optim.compression", "repro_torch.launch.train_hybrid",
        "repro_torch.checkpoint.checkpoint", "repro_torch.launch.replica",
-       "repro_torch.launch.mesh", "repro_torch.distributed.sharding")
+       "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+       "repro_torch.models.zamba", "repro_torch.configs.zamba2_2_7b")
 assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
 print("isolated", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """

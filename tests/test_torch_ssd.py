@@ -186,6 +186,20 @@ def test_three_pass_matches_chunked_ref_and_reference_pallas(G, L, Bb, H):
     _close((y, S), r_ops.ssd(*J(*ins), chunk=chunk, impl="pallas"))
 
 
+@pytest.mark.parametrize("chunk,P,N,H,L", [(128, 64, 64, 80, 200)])
+def test_three_pass_at_a_built_shape_matches_reference_pallas(chunk, P, N, H, L):
+    """The passes at zamba2-2.7b's (chunk, P, N) = (128, 64, 64), its 80
+    heads in one group, L padded up to two chunks."""
+    ins = _inputs(11, Bb=1, L=L, H=H, P=P, G=1, N=N)
+    assert (chunk, P, N) in t_kernel.SHAPES
+    y, S = t_ref.ssd_three_pass_ref(*T(*_padded(ins, chunk)), chunk)
+    y = y[:, :L]
+    want = t_ref.ssd_chunked_ref(*T(*_padded(ins, chunk)), chunk=chunk)
+    np.testing.assert_allclose(y.numpy(), want[0][:, :L].numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(S.numpy(), want[1].numpy(), rtol=1e-5, atol=1e-5)
+    _close((y, S), r_ops.ssd(*J(*ins), chunk=chunk, impl="pallas"))
+
+
 def test_three_pass_workspace_and_passes():
     """Pass 1's outputs fill exactly the wrapper's workspace; pass 2's
     entering states start at zero and chain by the chunk decay; the final
@@ -246,12 +260,14 @@ def _mma_3xtf32(a, b):
     return acc
 
 
-def test_3xtf32_products_keep_float32_accuracy():
+@pytest.mark.parametrize("N", [128, 64])
+def test_3xtf32_products_keep_float32_accuracy(N):
     """One chunk's four products at mamba2-370m's (Q, P, N) = (128, 64,
-    128), on magnitudes like a layer's (decayed scores, dt-scaled x, a
-    carried state): the split's result is within 1e-6 relative L2 of
-    float64, while TF32 alone is not (so the bound is the split's)."""
-    Q, P, N = 128, 64, 128
+    128) and zamba2-2.7b's (128, 64, 64), on magnitudes like a layer's
+    (decayed scores, dt-scaled x, a carried state): the split's result is
+    within 1e-6 relative L2 of float64, while TF32 alone is not (so the
+    bound is the split's)."""
+    Q, P = 128, 64
     rng = np.random.RandomState(10)
     Cm, Bm = rng.randn(Q, N).astype(np.float32), rng.randn(Q, N).astype(np.float32)
     X = (rng.randn(Q, P) * 0.05).astype(np.float32)
@@ -270,7 +286,9 @@ def test_3xtf32_products_keep_float32_accuracy():
 
 
 @pytest.mark.parametrize(
-    "Bb,nc,H,G", [(4, 16, 32, 1), (2, 8, 32, 1), (1, 16, 32, 1), (2, 4, 4, 1), (8, 64, 32, 1), (2, 4, 8, 2), (1, 1, 6, 3)]
+    "Bb,nc,H,G",
+    [(4, 16, 32, 1), (2, 8, 32, 1), (1, 16, 32, 1), (2, 4, 4, 1), (8, 64, 32, 1), (2, 4, 8, 2), (1, 1, 6, 3),
+     (4, 16, 80, 1), (2, 8, 80, 1)],
 )
 def test_scan_heads_plan_keeps_the_card_filled(Bb, nc, H, G):
     """The chunk scan walks runs of HB heads of one group: HB a power of
@@ -284,3 +302,6 @@ def test_scan_heads_plan_keeps_the_card_filled(Bb, nc, H, G):
     # the serving shapes: mamba2-370m's 32 heads in one group
     assert t_kernel.scan_heads_per_block(4, 16, 32, 1, sms) == 8
     assert t_kernel.scan_heads_per_block(2, 8, 32, 1, sms) == 2
+    # zamba2-2.7b's 80 heads in one group: 320 blocks at both
+    assert t_kernel.scan_heads_per_block(4, 16, 80, 1, sms) == 16
+    assert t_kernel.scan_heads_per_block(2, 8, 80, 1, sms) == 4

@@ -38,6 +38,7 @@ from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import common as t_common  # noqa: E402
 from repro_torch.models import mamba2 as t_mamba2  # noqa: E402
 from repro_torch.models import model_api  # noqa: E402
+from repro_torch.models import zamba as t_zamba  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
 
 ARCHS = ["granite-8b", "qwen2-1.5b", "llama3-405b", "nemotron-4-15b"]
@@ -85,7 +86,12 @@ def test_config_mirrors_reference(arch):
 def test_model_registry_dispatches_most_derived_first():
     assert model_api.get_model(t_configs.get_smoke_config("qwen2-1.5b")) is t_tf
     assert model_api.get_model(t_configs.get_smoke_config("mamba2-370m")) is t_mamba2
+    assert model_api.get_model(t_configs.get_smoke_config("zamba2-2.7b")) is t_zamba
     assert issubclass(t_mamba2.Mamba2Config, t_tf.TransformerConfig)
+    # ZambaConfig is a Mamba2Config, so it must be looked up ahead of it
+    assert issubclass(t_zamba.ZambaConfig, t_mamba2.Mamba2Config)
+    order = [cls for cls, _ in model_api._DISPATCH]
+    assert order.index(t_zamba.ZambaConfig) < order.index(t_mamba2.Mamba2Config)
     with pytest.raises(TypeError, match="'moe'"):
         model_api.get_model(types.SimpleNamespace(family="moe"))
 
