@@ -259,8 +259,35 @@ Phases, each reported on lines of its own:
              float32: relative L2 <= 1e-5, max abs <= 3e-5); and
              a one-site float32 model at full width (6 layers) must give
              the same last logits and decode step by the kernel and the
-             plain routes (relative L2 <= 1e-4).  Runs last, so that no
-             earlier phase runs in a changed process state.
+             plain routes (relative L2 <= 1e-4).
+13. lm_moe — mixture-of-experts LM serving, one model at a time (each
+             freed before the next is built; random weights from a
+             seeded generator on the card): deepseek-v2-lite-16b at its
+             published config (27 layers: MLA with kv_lora 512, one dense
+             layer, 26 of 64 routed experts top-6 + 2 shared; 15.71 B
+             parameters, bf16), then arctic-480b at its published widths
+             (d_model 7168, 56 heads over 8 kv heads of 128, 128 experts
+             top-2 beside a dense residual of 4864) with the depth cut
+             from 35 to 2 layers (27.68 B parameters, bf16), each served
+             by ``LMServer.generate`` on the ``lm`` batches, timed and
+             profiled as there.  DeepSeek runs MLA's blockwise attention
+             as the reference does (B6 and B5 0 launches); Arctic's
+             prefill attention runs B6 (2 per prefill, decode none).
+             Printed per model and batch: the prefill's model-FLOP share
+             (active parameters only), decode ms/token against its floor
+             (every weight read once at 3.35 TB/s: the dense dispatch
+             reads every expert), the FLOPs of the dense dispatch and
+             combine einsums, and one MoE layer's stages timed alone.
+             Checks: finite logits; B6 on Arctic's layer-0 q, k, v of
+             both batches (group 7; the ``lm_dense`` bf16 bounds, float32
+             within 1e-5 / 3e-5); a one-layer float32 Arctic at full width
+             with 8 experts gives the same last logits and decode step by
+             the kernel and blockwise routes (1e-4), with routes that
+             differ only on near ties (<= 1e-5 of the k-th probability);
+             ``moe._topk_dispatch`` on the card bitwise the CPU's on
+             (4, 2048, 64) and (2, 4096, 128) with exact ties planted.
+             Runs last, so that no earlier phase runs in a changed
+             process state.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -305,7 +332,7 @@ FLASH_BF16_ABS_V = 5e-3  # max abs error, in units of max|v|
 FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-5, 3e-5
 # B6 bf16 sweep (B, Sq, Sk, H, G, D, causal): ragged lengths (37, 130,
 # 1000: not multiples of the 64-row tile), Sq != Sk both ways, GQA groups
-# H/G of 1, 2 and 6, head dims 16, 24 (padded to 32 in shared memory), 32,
+# H/G of 1, 2, 6 and 7 (arctic-480b's 56 over 8), head dims 16, 24 (padded to 32 in shared memory), 32,
 # 128 and 160 (padded to 192), both mask settings
 FLASH_BF16_SWEEP = (
     (2, 37, 37, 4, 4, 16, True), (2, 37, 37, 4, 2, 16, False),
@@ -316,8 +343,12 @@ FLASH_BF16_SWEEP = (
     (2, 1000, 1000, 12, 2, 128, True), (2, 1000, 1000, 12, 2, 128, False),
     (2, 1000, 1000, 32, 32, 160, True), (2, 1000, 1000, 32, 32, 160, False),
     (1, 130, 130, 4, 2, 160, True), (1, 40, 100, 4, 4, 160, False),
+    (1, 300, 300, 14, 2, 128, True), (2, 1000, 1000, 56, 8, 128, False),
 )
 LM_RTOL = 1e-4
+# routing of two float32 routes may differ only on a near tie: the gap in
+# the router probabilities, relative to the k-th largest
+NEAR_TIE_REL = 1e-5
 # substrings of the hand-written kernels' names, listed in every profile
 OWN_KERNELS = ("topk", "mac_", "ssd", "flash", "conv3d")
 # Decode attention's bf16-GEMM route against the _dot_f32 route on
@@ -2631,6 +2662,272 @@ def phase_lm_zamba(seed: int, card: str) -> tuple[dict, list[dict]]:
     return report, rows
 
 
+def _moe_flops(cfg, B: int, S: int) -> dict:
+    """FLOPs of one prefill's MoE layers by part, from the shapes the
+    reference's dense dispatch gives them: the dispatch and the combine
+    einsums (2·G·gs·E·C·D each), the experts on their capacity buffers
+    (3 products of 2·G·E·C·D·Fm) and the shared experts on every token."""
+    from repro_torch.models import moe
+
+    T = B * S
+    gs = moe.group_size(T, cfg.router_group)
+    G = T // gs
+    C = max(int(cfg.capacity_factor * gs * cfg.top_k / cfg.n_experts), 1)
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    slots = G * cfg.n_experts * C
+    return {
+        "dispatch_combine": n_moe * 2 * 2 * T * cfg.n_experts * C * cfg.d_model,
+        "experts": n_moe * 3 * 2 * slots * cfg.d_model * cfg.moe_d_ff,
+        "shared": n_moe * 3 * 2 * T * cfg.d_model * cfg.moe_d_ff * cfg.n_shared_experts,
+        "capacity": C,
+        "groups": G,
+    }
+
+
+def _moe_stages(phase, cfg, mp, h, card) -> dict:
+    """One MoE layer's stages on its own input ``h`` (B, S, D), each timed
+    alone with CUDA events: the router, the dispatch build, the dispatch
+    einsum, the experts, the combine einsum, the shared experts, and the
+    whole ``moe_block``."""
+    from repro_torch.models import common, moe
+
+    cd = cfg.compute_dtype
+    B, S, D = h.shape
+    xg = h.reshape(-1, moe.group_size(B * S, cfg.router_group), D)
+    with torch.inference_mode():
+        probs = torch.softmax(xg.float() @ mp.router, dim=-1)
+        dispatch, combine = moe._topk_dispatch(cfg, probs)
+        dispatch, combine = dispatch.to(cd), combine.to(cd)
+        xe = torch.einsum("gsec,gsd->gecd", dispatch, xg)
+
+        def experts():
+            hg = torch.einsum("gecd,edf->gecf", xe, mp.we_gate.to(cd))
+            hu = torch.einsum("gecd,edf->gecf", xe, mp.we_up.to(cd))
+            return torch.einsum("gecf,efd->gecd", common.swiglu(hg, hu), mp.we_down.to(cd))
+
+        ye = experts()
+        stages = {
+            "router": lambda: torch.softmax(xg.float() @ mp.router, dim=-1),
+            "dispatch build": lambda: moe._topk_dispatch(cfg, probs),
+            "dispatch einsum": lambda: torch.einsum("gsec,gsd->gecd", dispatch, xg),
+            "experts": experts,
+            "combine einsum": lambda: torch.einsum("gsec,gecd->gsd", combine, ye),
+        }
+        if cfg.n_shared_experts:
+            stages["shared"] = lambda: common.swiglu(
+                h @ mp.ws_gate.to(cd), h @ mp.ws_up.to(cd)) @ mp.ws_down.to(cd)
+        stages["moe_block"] = lambda: moe.moe_block(cfg, mp, h)
+        ms = {name: _time_ms(fn, 5) for name, fn in stages.items()}
+    print(f"{phase}: {cfg.name} one MoE layer at {B}x{S}, device ms: "
+          + ", ".join(f"{n} {t:.3f}" for n, t in ms.items()) + f" [{card}]")
+    return ms
+
+
+@contextlib.contextmanager
+def _recorded_routing():
+    """Records the router probabilities of every ``moe_block`` call (by
+    wrapping ``moe._top_k``) into the list it yields."""
+    from repro_torch.models import moe
+
+    rec, orig = [], moe._top_k
+
+    def top_k(probs, k):
+        rec.append(probs.detach().clone())
+        return orig(probs, k)
+
+    moe._top_k = top_k
+    try:
+        yield rec
+    finally:
+        moe._top_k = orig
+
+
+def _route_differences(rec_a, rec_b, k) -> tuple[int, float]:
+    """Tokens whose top-k sets differ between two runs' router
+    probabilities, call by call, and the largest such token's gap in
+    ``rec_b``'s probabilities (its k-th largest over its probability of
+    ``rec_a``'s pick outside its set), relative to that k-th largest."""
+    from repro_torch.models import moe
+
+    n, worst = 0, 0.0
+    for pa, pb in zip(rec_a, rec_b):
+        pa, pb = pa.reshape(-1, pa.shape[-1]), pb.reshape(-1, pb.shape[-1])
+        ia, ib = moe._top_k(pa, k)[1], moe._top_k(pb, k)[1]
+        member = torch.zeros_like(pb, dtype=torch.bool).scatter_(-1, ib, True)
+        extra = torch.zeros_like(member).scatter_(-1, ia, True) & ~member
+        rows = extra.any(-1)
+        n += int(rows.sum())
+        if rows.any():
+            kth = pb.gather(-1, ib[:, -1:])[rows, 0]
+            low = torch.where(extra, pb, torch.inf)[rows].amin(-1)
+            worst = max(worst, float(((kth - low) / kth).max()))
+    return n, worst
+
+
+def _dispatch_on_card(cfg, shape, gen) -> dict:
+    """``moe._topk_dispatch`` on the card against the CPU on one (G, gs, E)
+    probability tensor with exact ties planted (logits rounded to halves):
+    dispatch and combine must be bitwise equal."""
+    from repro_torch.models import moe
+
+    logits = torch.round(torch.randn(shape, generator=gen, device="cuda") * 2) / 2
+    probs = torch.softmax(logits, dim=-1)
+    srt = probs.sort(-1, descending=True).values
+    ties = int((srt[..., cfg.top_k - 1] == srt[..., cfg.top_k]).sum())
+    d_gpu, c_gpu = moe._topk_dispatch(cfg, probs)
+    d_cpu, c_cpu = moe._topk_dispatch(cfg, probs.cpu())
+    same = _bits_equal(d_gpu.cpu(), d_cpu) and _bits_equal(c_gpu.cpu(), c_cpu)
+    kept = float(d_cpu.sum())
+    del d_gpu, c_gpu, d_cpu, c_cpu
+    return {"shape": list(shape), "capacity": max(int(cfg.capacity_factor * shape[1] * cfg.top_k
+                                                      / cfg.n_experts), 1),
+            "ties_at_the_cut": ties, "kept": kept, "bitwise": same}
+
+
+def phase_lm_moe(seed: int, card: str) -> tuple[dict, list[dict]]:
+    """Mixture-of-experts LM serving: deepseek-v2-lite-16b at its published
+    config (27 layers, MLA + DeepSeekMoE, 15.71 B parameters, bf16) and
+    arctic-480b at its published widths with the depth cut to 2 layers
+    (27.68 B parameters, bf16), random weights from a seeded generator on
+    the card, each served by ``LMServer.generate`` on the ``lm`` batches
+    and freed before the next is built.  DeepSeek's MLA runs the
+    reference's blockwise attention (B6 and B5 launch 0 times); Arctic's
+    prefill attention runs B6 (n_layers launches per prefill, decode
+    none), held against its plain version on layer 0's q, k, v (56 query
+    heads over 8 kv heads) of both batches.  A one-layer float32 Arctic
+    at full width (8 experts) gives the same last logits and decode step
+    by the kernel and blockwise routes; the dispatch on the card is
+    bitwise the CPU's.  Returns the report and the B6 kernel rows."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import common, mla, model_api, moe, transformer
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    report, rows = {}, []
+    for name, overrides, mod in (("deepseek-v2-lite-16b", {}, mla),
+                                 ("arctic-480b", {"n_layers": 2}, moe)):
+        cfg = configs.get_config(name, **overrides)
+        model = mod.init_params(cfg, gen, device="cuda")
+        weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        floor_ms = weights / HBM_BYTES_PER_S * 1e3
+        print(f"lm_moe: {cfg.name}: {cfg.num_params()} parameters ({weights / 2**30:.2f} GiB bf16), "
+              f"{cfg.n_layers} layers ({cfg.first_k_dense} dense), d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads, {cfg.n_experts} experts top-{cfg.top_k} of {cfg.moe_d_ff}"
+              + (f", {cfg.n_shared_experts} shared" if cfg.n_shared_experts else "")
+              + (f", dense residual {cfg.d_ff}" if cfg.dense_residual else "")
+              + f"; decode floor {floor_ms:.3f} ms/token (every weight read once) [{card}]")
+        b6_per_prefill = cfg.n_layers if mod is moe else 0
+        rep, prompts_by, servers = _serve_lm(
+            "lm_moe", cfg,
+            lambda max_len, cfg=cfg, model=model: LMServer(cfg, model, max_len=max_len, device="cuda"),
+            gen,
+            [(flash_kernel.flash_fwd_cuda, b6_per_prefill, flash_kernel.reset_launches),
+             (ssd_kernel.ssd_chunked_cuda, 0, ssd_kernel.reset_launches)],
+            card,
+        )
+        rep["weight_bytes"] = weights
+        rep["decode_floor_ms"] = floor_ms
+        per_token = model_api.model_flops_per_token(cfg, train=False)
+        for (Bb, S, n_new), rec in zip(LM_BATCHES, rep["batches"].values()):
+            rec["model_flop_share"] = per_token * Bb * S / (rec["prefill_median_ms"] * 1e-3) / BF16_FLOPS
+            rec["decode_floor_share"] = floor_ms / rec["decode_ms_per_token"]
+            rec["moe_flops"] = _moe_flops(cfg, Bb, S)
+            print(f"lm_moe: {cfg.name} {Bb}x{S}: prefill model-FLOP share {rec['model_flop_share']:.2%} "
+                  f"(active parameters only, 2 x {cfg.active_params()} a token, of 989 TFLOP/s); "
+                  f"decode {rec['decode_ms_per_token']:.3f} ms/token = {rec['decode_floor_share']:.1%} "
+                  f"of the weight-bytes floor; dense dispatch + combine einsums "
+                  f"{rec['moe_flops']['dispatch_combine'] / 1e12:.2f} TFLOP, experts on capacity "
+                  f"buffers (C = {rec['moe_flops']['capacity']}) {rec['moe_flops']['experts'] / 1e12:.2f} "
+                  f"TFLOP [{card}]")
+        toks = prompts_by[LM_BATCHES[0][:2]]
+        with torch.inference_mode():
+            last, _ = model.prefill(toks)
+            B, S = toks.shape
+            pos = torch.arange(S, device="cuda")[None].expand(B, S)
+            x = model._embed(toks)
+            if mod is mla:  # layer 1, the first MoE layer: its FFN input
+                x, _ = model.dense_layers[0].ffn(model.dense_layers[0].full(x, pos)[0])
+                blk = model.layers[0]
+                h = common.rms_norm(blk.full(x, pos)[0], blk.ln2, cfg.norm_eps)
+            else:
+                blk = model.layers[0]
+                q, k, v = blk.qkv(x, pos)
+                x1 = blk.attn_out(x, transformer.causal_attention(cfg, q, k, v))
+                h = common.rms_norm(x1, blk.ln3, cfg.norm_eps)
+                del q, k, v, x1
+        if not torch.isfinite(last).all():
+            raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+        rep["moe_layer_ms"] = _moe_stages("lm_moe", cfg, blk.moe, h, card)
+        del h, x, last
+        if mod is moe:
+            b6_launches = rep["kernel_launches"]["flash_fwd_cuda"]
+            rep["b6_f32"] = {}
+            for Bb, S, _ in LM_BATCHES:
+                tag = f"{Bb}x{S}"
+                with torch.inference_mode():
+                    tt = prompts_by[(Bb, S)]
+                    q, k, v = blk.qkv(model._embed(tt), torch.arange(S, device="cuda")[None].expand(Bb, S))
+                rows.append(_b6_row("lm_moe", f"flash_fwd[arctic {tag},g7]", q, k, v, b6_launches, card))
+                rep["b6_f32"][tag] = _b6_check(
+                    "lm_moe", f"f32 [arctic {tag},g7]", q.float(), k.float(), v.float(), True,
+                    FLASH_F32_RTOL, FLASH_F32_ATOL, card=card,
+                )
+                del q, k, v
+        report[name] = rep
+        del model, blk, servers, prompts_by, toks, rep
+        torch.cuda.empty_cache()
+
+    # one Arctic layer at full width in float32, 8 experts: the kernel
+    # route (B6) and the blockwise route give the same answers and routes
+    cfg1 = configs.get_config("arctic-480b", n_layers=1, n_experts=8, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    m_kernel = moe.init_params(cfg1, gen, device="cuda")
+    m_plain = moe.MoE(dataclasses.replace(cfg1, attn_impl="blockwise"), "cuda")
+    m_plain.load_state_dict(m_kernel.state_dict())
+    Bb, S, _ = LM_BATCHES[0]
+    toks = torch.randint(0, cfg1.vocab, (Bb, S), generator=gen, device="cuda")
+    routes = {}
+    for tag, m in (("kernel", m_kernel), ("blockwise", m_plain)):
+        with _recorded_routing() as rec, torch.inference_mode():
+            last, cache = m.prefill(toks, max_len=S + 1)
+            nxt = last.argmax(-1)[:, None] if tag == "kernel" else routes["kernel"][2]
+            step, _ = m.decode_step(cache, nxt)
+        routes[tag] = (last, step, nxt, rec)
+        del cache
+    (l_k, d_k, _, r_k), (l_p, d_p, _, r_p) = routes["kernel"], routes["blockwise"]
+    rel_last, rel_dec = _rel_l2(l_k, l_p), _rel_l2(d_k, d_p)
+    flips, worst = _route_differences(r_k, r_p, cfg1.top_k)
+    report["f32_one_layer"] = {"last_logits_rel_l2": rel_last, "decode_logits_rel_l2": rel_dec,
+                               "route_differences": flips, "worst_gap_rel": worst}
+    print(f"lm_moe: one-layer f32 arctic (8 experts) {Bb}x{S}, kernel vs blockwise routes: last logits "
+          f"rel L2 {rel_last:.3g}, one decode step {rel_dec:.3g} (<= {LM_RTOL:g}); tokens routed "
+          f"differently {flips} (worst gap {worst:.3g} of the k-th probability, <= {NEAR_TIE_REL:g}) "
+          f"[{card}]")
+    if not (rel_last <= LM_RTOL and rel_dec <= LM_RTOL and torch.isfinite(l_k).all()
+            and torch.isfinite(d_k).all() and worst <= NEAR_TIE_REL):
+        raise AssertionError(f"arctic kernel and blockwise routes disagree: {report['f32_one_layer']}")
+    del m_kernel, m_plain, routes, r_k, r_p
+    torch.cuda.empty_cache()
+
+    # the dispatch on the card, bitwise the CPU's, at each model's
+    # 4 x 2048 routing groups
+    report["dispatch"] = {}
+    for name, shape in (("deepseek-v2-lite-16b", (4, 2048, 64)), ("arctic-480b", (2, 4096, 128))):
+        res = report["dispatch"][name] = _dispatch_on_card(configs.get_config(name), shape, gen)
+        print(f"lm_moe: {name} dispatch {tuple(shape)} (C = {res['capacity']}, {res['ties_at_the_cut']} "
+              f"ties at the top-k cut, {res['kept']:.0f} slots kept) on the card vs the CPU: "
+              f"{'bitwise' if res['bitwise'] else 'DIFFERENT'} [{card}]")
+        if not res["bitwise"]:
+            raise AssertionError(f"{name}: the dispatch on the card differs from the CPU's")
+    report["seconds"] = time.perf_counter() - t0
+    print(f"lm_moe: phase {report['seconds']:.1f} s [{card}]")
+    return report, rows
+
+
 def _conv_row(tag, x, w, launches, rtol, reps=20, want_route=None) -> dict:
     """One B4 ``kernel:`` row: the kernel ``kernel.route`` names (and, if
     given, it must be ``want_route``) against its plain version on the
@@ -3485,6 +3782,8 @@ def main() -> int:
     rows += mesh_rows
     report["lm_zamba"], zamba_rows = phase_lm_zamba(args.seed, card)
     rows += zamba_rows
+    report["lm_moe"], moe_rows = phase_lm_moe(args.seed, card)
+    rows += moe_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

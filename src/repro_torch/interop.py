@@ -5,8 +5,9 @@
 grating's fields passed as numpy arrays plus its metadata, so a test can
 hold port *queries* against reference queries on the very same recorded
 grating, apart from record parity.  :func:`mamba2_params_from_numpy`,
-:func:`transformer_params_from_numpy` and :func:`zamba_params_from_numpy`
-load a reference Mamba-2, dense-transformer or Zamba-2 parameter tree
+:func:`transformer_params_from_numpy`, :func:`zamba_params_from_numpy`,
+:func:`moe_params_from_numpy` and :func:`mla_params_from_numpy` load a
+reference Mamba-2, dense-transformer, Zamba-2, MoE or MLA parameter tree
 into the port's module, and
 :func:`hybrid_params_from_numpy` the hybrid 3-D CNN's parameters.  Tenant kernel
 sets are numpy on both sides and need no conversion.  All take
@@ -21,7 +22,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import hybrid
 from repro_torch.core.engine import FusedGrating
-from repro_torch.models import mamba2, transformer, zamba
+from repro_torch.models import mamba2, mla, moe, transformer, zamba
 
 
 def _to_torch(arr, device) -> torch.Tensor | None:
@@ -77,19 +78,55 @@ def _put(p: torch.nn.Parameter, arr, name: str) -> None:
     p.copy_(t)
 
 
-def _load(model, params: dict, cfg, fields) -> None:
-    """Copy a reference tree's ``embed``, ``final_norm``, ``lm_head``
-    (untied only) and stacked ``layers`` fields into ``model``."""
-    _put(model.embed, params["embed"], "embed")
-    _put(model.final_norm, params["final_norm"], "final_norm")
-    if not cfg.tie_embeddings:
-        _put(model.lm_head, params["lm_head"], "lm_head")
-    for name in fields:
-        stacked = np.asarray(params["layers"][name])
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers.{name} stacks {stacked.shape[0]} layers, cfg has {cfg.n_layers}")
-        for i, block in enumerate(model.layers):
-            _put(getattr(block, name), stacked[i], f"layers.{name}[{i}]")
+def _fields(module: torch.nn.Module) -> dict:
+    """A module's own parameters (None) and its child modules (their
+    fields), by name: the layout of one layer of a reference tree."""
+    out: dict = {name: None for name, _ in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        out[name] = _fields(child)
+    return out
+
+
+def _same_keys(tree: dict, want, where: str) -> None:
+    if set(tree) != set(want):
+        missing, extra = sorted(set(want) - set(tree)), sorted(set(tree) - set(want))
+        raise ValueError(f"{where} hold {sorted(tree)}: missing {missing}, extra {extra}")
+
+
+def _load_stack(blocks, tree: dict, where: str) -> None:
+    """Copy a stacked layer tree (each leaf (len(blocks), ...), a nested
+    dict for each child module) into ``blocks``, checking every field by
+    name, stack length, shape and dtype."""
+    want = _fields(blocks[0])
+    _same_keys(tree, want, where)
+    for name, sub in tree.items():
+        if (want[name] is None) == isinstance(sub, dict):
+            raise ValueError(
+                f"{where}.{name}: got a {'tree' if isinstance(sub, dict) else 'leaf'}, "
+                f"the model holds a {'leaf' if want[name] is None else 'tree'}"
+            )
+        if isinstance(sub, dict):
+            _load_stack([getattr(b, name) for b in blocks], sub, f"{where}.{name}")
+            continue
+        arr = np.asarray(sub)
+        if arr.shape[:1] != (len(blocks),):
+            raise ValueError(f"{where}.{name} stacks {arr.shape[:1]} layers, the model has {len(blocks)}")
+        for i, b in enumerate(blocks):
+            _put(getattr(b, name), arr[i], f"{where}.{name}[{i}]")
+
+
+def _load_tree(model, params: dict, stacks: dict, others=()) -> None:
+    """Copy a reference tree's ``embed``, ``final_norm``, ``lm_head`` (where
+    the model holds one) and each stacked layer tree named in ``stacks``
+    into ``model``; ``others`` are top-level keys the caller loads.  Any
+    field missing, extra, or of another shape or dtype raises a
+    ``ValueError`` that names it."""
+    top = [n for n in ("embed", "final_norm", "lm_head") if hasattr(model, n)]
+    _same_keys(params, [*top, *stacks, *others], "params")
+    for name in top:
+        _put(getattr(model, name), params[name], name)
+    for name, blocks in stacks.items():
+        _load_stack(blocks, params[name], name)
 
 
 @torch.no_grad()
@@ -104,7 +141,7 @@ def mamba2_params_from_numpy(params: dict, cfg: mamba2.Mamba2Config, device=None
     the shape and dtype the port's module holds for ``cfg``.
     """
     model = mamba2.Mamba2(cfg, resolve_device(device))
-    _load(model, params, cfg, mamba2.LAYER_FIELDS)
+    _load_tree(model, params, {"layers": model.layers})
     return model
 
 
@@ -118,12 +155,7 @@ def transformer_params_from_numpy(
     fields of ``transformer.LAYER_FIELDS`` that ``cfg`` has (the biases
     with ``qkv_bias``, ``w_gate`` with the SwiGLU MLP)."""
     model = transformer.Transformer(cfg, resolve_device(device))
-    fields = transformer.layer_shapes(cfg)
-    if set(params["layers"]) != set(fields):
-        raise ValueError(
-            f"layers hold {sorted(params['layers'])}, cfg {cfg.name!r} has {sorted(fields)}"
-        )
-    _load(model, params, cfg, fields)
+    _load_tree(model, params, {"layers": model.layers})
     return model
 
 
@@ -153,9 +185,36 @@ def zamba_params_from_numpy(params: dict, cfg: zamba.ZambaConfig, device=None) -
                 f"layers.{name} stacks {arr.shape[:2]}, cfg has (n_segments, shared_every) = {lead}"
             )
         layers[name] = arr.reshape((-1,) + arr.shape[2:])
-    _load(model, {**params, "layers": layers}, cfg, mamba2.LAYER_FIELDS)
+    _load_tree(model, {**params, "layers": layers}, {"layers": model.layers}, ("shared",))
     for name in zamba.SHARED_FIELDS:
         _put(getattr(model.shared, name), params["shared"][name], f"shared.{name}")
+    return model
+
+
+@torch.no_grad()
+def moe_params_from_numpy(params: dict, cfg: moe.MoEConfig, device=None) -> moe.MoE:
+    """The port's :class:`~repro_torch.models.moe.MoE` holding a reference
+    parameter tree (numpy leaves): ``embed``, ``final_norm``, ``lm_head``
+    when the embeddings are not tied, and ``layers``, each field stacked
+    on axis 0 with the MoE's under ``layers.moe`` (``router`` float32).
+    A field that is missing, extra, or of another shape or dtype than the
+    port's module holds for ``cfg`` raises a ``ValueError`` that names it."""
+    model = moe.MoE(cfg, resolve_device(device))
+    _load_tree(model, params, {"layers": model.layers})
+    return model
+
+
+@torch.no_grad()
+def mla_params_from_numpy(params: dict, cfg: mla.MLAConfig, device=None) -> mla.MLA:
+    """The port's :class:`~repro_torch.models.mla.MLA` holding a reference
+    parameter tree, as :func:`moe_params_from_numpy`: ``embed``,
+    ``final_norm``, ``lm_head``, the stacked ``dense_layers`` (when
+    ``first_k_dense``) and the stacked MoE ``layers``."""
+    model = mla.MLA(cfg, resolve_device(device))
+    stacks = {"layers": model.layers}
+    if cfg.first_k_dense:
+        stacks["dense_layers"] = model.dense_layers
+    _load_tree(model, params, stacks)
     return model
 
 

@@ -1369,7 +1369,14 @@ class LMServer:
     decode raises a ``ValueError`` past it).  Zamba-2 keeps one such KV
     cache per shared-block site (``n_segments`` of them), so ``max_len``
     bounds it the same way and sizes it ``n_segments`` times over.
-    Mamba-2 ignores it: an SSM state does not grow with the sequence."""
+    Mamba-2 ignores it: an SSM state does not grow with the sequence.
+    An Arctic-style MoE model keeps the dense transformer's K/V cache;
+    MLA (DeepSeek-V2) caches a latent of ``kv_lora + qk_rope`` values per
+    position and layer.  MoE decode drops tokens: a decode step routes
+    the batch's B tokens as one group, so each expert takes
+    max(int(capacity_factor · B · top_k / E), 1) of them (1 for both
+    published configs at B <= 4), and a token whose choice collides with
+    an earlier one loses that expert, as in the reference."""
 
     def __init__(self, cfg, params: torch.nn.Module, max_len: int = 128, device=None):
         self.device = resolve_device(device)

@@ -10,11 +10,13 @@ from __future__ import annotations
 
 from types import ModuleType
 
-from repro_torch.models import mamba2, transformer, zamba
+from repro_torch.models import mamba2, mla, moe, transformer, zamba
 
-# most-derived first: ZambaConfig subclasses Mamba2Config, which
-# subclasses TransformerConfig
+# most-derived first: MLAConfig subclasses MoEConfig, ZambaConfig
+# subclasses Mamba2Config, and each of them TransformerConfig
 _DISPATCH: list[tuple[type, ModuleType]] = [
+    (mla.MLAConfig, mla),
+    (moe.MoEConfig, moe),
     (zamba.ZambaConfig, zamba),
     (mamba2.Mamba2Config, mamba2),
     (transformer.TransformerConfig, transformer),
@@ -28,6 +30,13 @@ def get_model(cfg) -> ModuleType:
     family = getattr(cfg, "family", None)
     raise TypeError(
         f"model family {family!r} ({type(cfg).__name__}) is not ported to "
-        "repro_torch yet; ported: 'hybrid' (ZambaConfig), 'ssm' (Mamba2Config), "
-        "'dense' (TransformerConfig)"
+        "repro_torch yet (left: 'audio', 'vlm'); ported: 'moe' (MLAConfig, MoEConfig), "
+        "'hybrid' (ZambaConfig), 'ssm' (Mamba2Config), 'dense' (TransformerConfig)"
     )
+
+
+def model_flops_per_token(cfg, train: bool = True) -> float:
+    """MODEL_FLOPS/token: 6·N (train) or 2·N (inference forward), N the
+    active parameters where the config counts them, else all."""
+    n = cfg.active_params() if hasattr(cfg, "active_params") else cfg.num_params()
+    return (6.0 if train else 2.0) * n

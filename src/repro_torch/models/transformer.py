@@ -116,12 +116,15 @@ def layer_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
 
 class TransformerBlock(nn.Module):
     """One pre-norm residual layer: attention, then the MLP (the
-    reference's ``_qkv``, ``_attn_out`` and ``_mlp``)."""
+    reference's ``_qkv``, ``_attn_out`` and ``_mlp``).  Its parameters
+    are those ``shapes(cfg)`` names."""
+
+    shapes = staticmethod(layer_shapes)
 
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
         self.cfg = cfg
-        for name, shape in layer_shapes(cfg).items():
+        for name, shape in self.shapes(cfg).items():
             setattr(self, name, _param(shape, cfg.param_dtype, device))
 
     def qkv(self, x: Tensor, positions: Tensor) -> tuple[Tensor, Tensor, Tensor]:
@@ -144,18 +147,26 @@ class TransformerBlock(nn.Module):
         k = common.apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def finish(self, x: Tensor, attn: Tensor) -> Tensor:
-        """Output projection and residual, then the MLP and its residual."""
+    def attn_out(self, x: Tensor, attn: Tensor) -> Tensor:
+        """Output projection and its residual."""
+        cfg = self.cfg
+        B, S = x.shape[:2]
+        return x + attn.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(cfg.compute_dtype)
+
+    def mlp(self, x: Tensor) -> Tensor:
+        """The MLP on ``ln2`` of x, and its residual."""
         cfg = self.cfg
         cd = cfg.compute_dtype
-        B, S = x.shape[:2]
-        x = x + attn.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(cd)
         h = common.rms_norm(x, self.ln2, cfg.norm_eps)
         if cfg.mlp == "swiglu":
             z = common.swiglu(h @ self.w_gate.to(cd), h @ self.w_up.to(cd))
         else:
             z = common.ACTIVATIONS[cfg.mlp](h @ self.w_up.to(cd))
         return x + z @ self.w_down.to(cd)
+
+    def finish(self, x: Tensor, attn: Tensor) -> Tensor:
+        """Output projection and residual, then the MLP and its residual."""
+        return self.mlp(self.attn_out(x, attn))
 
     def forward(self, x: Tensor, positions: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         """Full-sequence layer (B, S, D) → (x', k, v)."""
@@ -169,6 +180,8 @@ class Transformer(nn.Module):
     ``decode_step`` one token.  Weights come from :func:`init_params` or
     ``repro_torch.interop.transformer_params_from_numpy``."""
 
+    block = TransformerBlock  # the layer class
+
     def __init__(self, cfg: TransformerConfig, device):
         super().__init__()
         self.cfg = cfg
@@ -177,7 +190,7 @@ class Transformer(nn.Module):
         self.final_norm = _param((cfg.d_model,), pd, device)
         if not cfg.tie_embeddings:
             self.lm_head = _param((cfg.d_model, cfg.vocab), pd, device)
-        self.layers = nn.ModuleList(TransformerBlock(cfg, device) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(self.block(cfg, device) for _ in range(cfg.n_layers))
 
     def _embed(self, tokens: Tensor) -> Tensor:
         return self.embed.to(self.cfg.compute_dtype)[tokens]
@@ -254,18 +267,11 @@ class Transformer(nn.Module):
         return self._head(x)[:, 0], {**cache, "length": pos + 1}
 
 
-@torch.no_grad()
-def init_params(
-    cfg: TransformerConfig, generator: torch.Generator | None = None, device=None
-) -> Transformer:
-    """A randomly initialised :class:`Transformer` on ``device`` (None =
-    the card), with the reference's init distributions (truncated normal,
-    std 1/sqrt(fan_in), embedding std 0.02; ones for norms, zeros for
-    biases) drawn from ``generator`` (default: seed 0 on the target
-    device)."""
-    device = resolve_device(device)
-    g = generator if generator is not None else torch.Generator(device).manual_seed(0)
-    model = Transformer(cfg, device)
+def fill_params(model: Transformer, cfg: TransformerConfig, g: torch.Generator) -> None:
+    """Draw ``model``'s embedding, final norm, head and each block's
+    ``shapes(cfg)`` parameters from ``g`` with the reference's init
+    distributions (truncated normal, std 1/sqrt(fan_in), embedding std
+    0.02; ones for norms, zeros for biases)."""
     pd = cfg.param_dtype
 
     def put(p: nn.Parameter, value: Tensor) -> None:
@@ -276,12 +282,25 @@ def init_params(
     if not cfg.tie_embeddings:
         put(model.lm_head, common.dense_init(g, (cfg.d_model, cfg.vocab), pd))
     for blk in model.layers:
-        for name, shape in layer_shapes(cfg).items():
-            if name in ("ln1", "ln2"):
+        for name, shape in blk.shapes(cfg).items():
+            if name.startswith("ln"):
                 value = common.ones_init(shape, pd)
             elif name in ("bq", "bk", "bv"):
                 value = common.zeros_init(shape, pd)
             else:
                 value = common.dense_init(g, shape, pd)
             put(getattr(blk, name), value)
+
+
+@torch.no_grad()
+def init_params(
+    cfg: TransformerConfig, generator: torch.Generator | None = None, device=None
+) -> Transformer:
+    """A randomly initialised :class:`Transformer` on ``device`` (None =
+    the card), drawn by :func:`fill_params` from ``generator`` (default:
+    seed 0 on the target device)."""
+    device = resolve_device(device)
+    g = generator if generator is not None else torch.Generator(device).manual_seed(0)
+    model = Transformer(cfg, device)
+    fill_params(model, cfg, g)
     return model

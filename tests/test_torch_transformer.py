@@ -37,7 +37,9 @@ from repro_torch.interop import transformer_params_from_numpy  # noqa: E402
 from repro_torch.launch import serve as t_serve  # noqa: E402
 from repro_torch.models import common as t_common  # noqa: E402
 from repro_torch.models import mamba2 as t_mamba2  # noqa: E402
+from repro_torch.models import mla as t_mla  # noqa: E402
 from repro_torch.models import model_api  # noqa: E402
+from repro_torch.models import moe as t_moe  # noqa: E402
 from repro_torch.models import zamba as t_zamba  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
 
@@ -92,8 +94,14 @@ def test_model_registry_dispatches_most_derived_first():
     assert issubclass(t_zamba.ZambaConfig, t_mamba2.Mamba2Config)
     order = [cls for cls, _ in model_api._DISPATCH]
     assert order.index(t_zamba.ZambaConfig) < order.index(t_mamba2.Mamba2Config)
-    with pytest.raises(TypeError, match="'moe'"):
-        model_api.get_model(types.SimpleNamespace(family="moe"))
+    # MLAConfig is a MoEConfig, and both are TransformerConfigs
+    assert model_api.get_model(t_configs.get_smoke_config("deepseek-v2-lite-16b")) is t_mla
+    assert model_api.get_model(t_configs.get_smoke_config("arctic-480b")) is t_moe
+    assert issubclass(t_mla.MLAConfig, t_moe.MoEConfig)
+    assert issubclass(t_moe.MoEConfig, t_tf.TransformerConfig)
+    assert order.index(t_mla.MLAConfig) < order.index(t_moe.MoEConfig) < order.index(t_tf.TransformerConfig)
+    with pytest.raises(TypeError, match="'audio'.*left: 'audio', 'vlm'"):
+        model_api.get_model(types.SimpleNamespace(family="audio"))
 
 
 # --------------------------------------------------------- common blocks
