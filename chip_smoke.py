@@ -110,14 +110,16 @@ Phases, each reported on lines of its own:
              the flash-attention kernel's (B6) launch counter must read
              28 x the prefills run.  B6 in bf16 (the wgmma build)
              is held against its plain version on layer 0's q, k, v of
-             both batches and on a bf16 sweep (ragged 37, 130 and 1000,
-             Sq != Sk both ways, GQA groups 1, 2 and 6, head dims 16, 24,
-             32 and 128, both mask settings): relative L2 <= 1e-2 (the
+             both batches and on a bf16 sweep (ragged 37, 130, 1000 and
+             1500, Sq != Sk both ways, GQA groups 1, 2, 6 and 7, head dims
+             16, 24, 32, 64, 128 and 160, both mask settings): relative
+             L2 <= 1e-2 (the
              plain version rounds q·scale to bf16), and against the
              plain version on the same inputs upcast to float32 the
              worst row's relative L2 <= 1e-2 and max abs <= 5e-3
              max|v|; in float32 (the FMA build) on the reference test
-             sweep's shapes and the smoke config's head dim 24
+             sweep's shapes, the smoke config's head dim 24 and head
+             dim 64 (ragged causal, Sq < Sk, a 37 x 1500 cross shape)
              (relative L2 <= 1e-5, max abs <= 3e-5); timed
              beside its plain version, one
              ``scaled_dot_product_attention`` call as the library
@@ -286,8 +288,28 @@ Phases, each reported on lines of its own:
              differ only on near ties (<= 1e-5 of the k-th probability);
              ``moe._topk_dispatch`` on the card bitwise the CPU's on
              (4, 2048, 64) and (2, 4096, 128) with exact ties planted.
-             Runs last, so that no earlier phase runs in a changed
-             process state.
+14. lm_mm  — the audio and VLM families, one model at a time (random
+             bf16 weights from a seeded generator on the card):
+             whisper-tiny at its published config (4 + 4 layers, d_model
+             384, 6 heads of 64, 1500 frames, 49.03 M parameters), its
+             prompts a batch dict of tokens and (B, 1500, 384) frames,
+             then internvl2-2b at its published config (24 layers,
+             d_model 2048, 16 heads over 8 kv heads of 128, 1.889 B
+             parameters), 256 patches of (B, 256, 2048) ahead of the
+             tokens and its cache sized 256 + S + new; each served by
+             ``LMServer.generate`` on the ``lm`` batches, timed and
+             profiled as there, with the prefill's model-FLOP share (2 x
+             the weights a position runs through).  B6 launches per
+             prefill, gated: Whisper 12 (encoder, decoder self and cross
+             attention at each of 4 layers, on the head-dim-64 build),
+             InternVL2 24; decode and B5 none.  B6 is held against its
+             plain version on layer 0's q, k, v of every site and batch
+             (bf16: the ``lm_dense`` bounds; float32 within 1e-5 / 3e-5)
+             and timed as a ``kernel:`` row beside SDPA; a one-layer
+             float32 model of each at full width gives the same last
+             logits and decode step by the kernel and blockwise routes
+             (1e-4).  Runs last, so that no earlier phase runs in a
+             changed process state.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -331,9 +353,10 @@ FLASH_BF16_ROW_RTOL = 1e-2  # worst row's relative L2
 FLASH_BF16_ABS_V = 5e-3  # max abs error, in units of max|v|
 FLASH_F32_RTOL, FLASH_F32_ATOL = 1e-5, 3e-5
 # B6 bf16 sweep (B, Sq, Sk, H, G, D, causal): ragged lengths (37, 130,
-# 1000: not multiples of the 64-row tile), Sq != Sk both ways, GQA groups
-# H/G of 1, 2, 6 and 7 (arctic-480b's 56 over 8), head dims 16, 24 (padded to 32 in shared memory), 32,
-# 128 and 160 (padded to 192), both mask settings
+# 1000, 1500: not multiples of the 64-row tile), Sq != Sk both ways, GQA
+# groups H/G of 1, 2, 6 and 7 (arctic-480b's 56 over 8), head dims 16, 24
+# (padded to 32 in shared memory), 32, 64 (whisper-tiny's, one 128-byte
+# half), 128 and 160 (padded to 192), both mask settings
 FLASH_BF16_SWEEP = (
     (2, 37, 37, 4, 4, 16, True), (2, 37, 37, 4, 2, 16, False),
     (1, 40, 100, 4, 2, 16, False), (1, 40, 100, 4, 2, 16, True),
@@ -344,6 +367,13 @@ FLASH_BF16_SWEEP = (
     (2, 1000, 1000, 32, 32, 160, True), (2, 1000, 1000, 32, 32, 160, False),
     (1, 130, 130, 4, 2, 160, True), (1, 40, 100, 4, 4, 160, False),
     (1, 300, 300, 14, 2, 128, True), (2, 1000, 1000, 56, 8, 128, False),
+    (1, 130, 130, 6, 6, 64, True), (2, 1500, 1500, 6, 6, 64, False),
+    (1, 40, 100, 6, 3, 64, False), (1, 100, 40, 4, 2, 64, True), (2, 37, 1500, 6, 6, 64, False),
+)
+# B6 float32 (the FMA build) at D = 64: ragged causal, Sq < Sk with GQA,
+# and a ragged cross shape over whisper-tiny's 1500 frames
+FLASH_F32_D64 = (
+    (1, 130, 130, 6, 6, 64, True), (1, 40, 100, 6, 3, 64, False), (2, 37, 1500, 6, 6, 64, False),
 )
 LM_RTOL = 1e-4
 # routing of two float32 routes may differ only on a near tie: the gap in
@@ -2057,9 +2087,11 @@ def _by_kind(by_name: dict) -> dict:
     return kinds
 
 
-def _serve_lm(tag, cfg, server_for, gen, kernels, card="") -> tuple[dict, dict, dict]:
+def _serve_lm(tag, cfg, server_for, gen, kernels, card="", prompt_for=None) -> tuple[dict, dict, dict]:
     """``LMServer.generate`` over ``LM_BATCHES``: one warm-up, then
-    ``LM_REPS`` timed prefill-only and full calls per batch.  ``kernels``
+    ``LM_REPS`` timed prefill-only and full calls per batch.  ``prompt_for(B,
+    S)`` builds a batch's prompts (default: random (B, S) tokens on the
+    card from ``gen``; the batch dict of the audio and VLM families).  ``kernels``
     holds (wrapper, launches per prefill, reset) for each kernel of the
     path; each counter, zeroed before the timed calls, must read that
     many x the prefills run (so decode launches none).  Then one profiled
@@ -2072,7 +2104,10 @@ def _serve_lm(tag, cfg, server_for, gen, kernels, card="") -> tuple[dict, dict, 
     prompts_by, servers = {}, {}
     for Bb, S, n_new in LM_BATCHES:
         server = servers[(Bb, S)] = server_for(S + n_new)
-        prompts = torch.randint(0, cfg.vocab, (Bb, S), generator=gen, device="cuda")
+        if prompt_for is None:
+            prompts = torch.randint(0, cfg.vocab, (Bb, S), generator=gen, device="cuda")
+        else:
+            prompts = prompt_for(Bb, S)
         prompts_by[(Bb, S)] = prompts
         server.generate(prompts, n_new)  # warm: cuBLAS handles, allocator
         server.generate(prompts, 1)
@@ -2337,25 +2372,27 @@ def _b6_check(phase, tag, q, k, v, causal, rtol, atol=None, card="") -> dict:
     return res
 
 
-def _b6_row(phase, name, q, k, v, launches, card="") -> dict:
-    """B6 in bf16 at a main path's causal shape, checked (``_b6_check``)
-    and timed beside its plain version and one
-    ``scaled_dot_product_attention`` call, as a ``kernel:`` row."""
+def _b6_row(phase, name, q, k, v, launches, card="", causal=True) -> dict:
+    """B6 in bf16 at a main path's shape (causal with Sq = Sk, or full
+    over any Sk), checked (``_b6_check``) and timed beside its plain
+    version and one ``scaled_dot_product_attention`` call, as a
+    ``kernel:`` row."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.kernels.flash import ref as flash_ref
 
     Bb, S, H, D = q.shape
-    G = k.shape[2]
-    res = _b6_check(phase, f"[{Bb}x{S}]", q, k, v, True, FLASH_BF16_RTOL, card=card)
+    Sk, G = k.shape[1], k.shape[2]
+    res = _b6_check(phase, f"[{Bb}x{S}" + (f"x{Sk}]" if Sk != S else "]"), q, k, v, causal,
+                    FLASH_BF16_RTOL, card=card)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = _time_ms(lambda: flash_kernel.flash_fwd_cuda(q, k, v, True), 20)
-    plain_ms = _time_ms(lambda: flash_ref.flash_ref(q, k, v, causal=True), 3)
+    ms = _time_ms(lambda: flash_kernel.flash_fwd_cuda(q, k, v, causal), 20)
+    plain_ms = _time_ms(lambda: flash_ref.flash_ref(q, k, v, causal=causal), 3)
     lib_ms = _time_ms(
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), 20
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True), 20
     )
-    cost = _attn_cost(Bb, S, S, H, G, D, True, q.element_size())
+    cost = _attn_cost(Bb, S, Sk, H, G, D, causal, q.element_size())
     bound, by = _bound_ms(*cost, rate=BF16_FLOPS)
     return {
         "name": name,
@@ -2375,8 +2412,8 @@ def _b6_row(phase, name, q, k, v, launches, card="") -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": lib_ms,
-        "shape": {"B": Bb, "Sq": S, "Sk": S, "H": H, "G": G, "D": D,
-                  "dtype": "bfloat16", "causal": True},
+        "shape": {"B": Bb, "Sq": S, "Sk": Sk, "H": H, "G": G, "D": D,
+                  "dtype": "bfloat16", "causal": causal},
     }
 
 
@@ -2529,7 +2566,7 @@ def phase_lm_dense(seed: int) -> tuple[dict, list[dict]]:
     for B, Sq, Sk, H, G, D, causal in (
         (2, 37, 37, 4, 2, 16, True), (2, 37, 37, 4, 4, 16, False),
         (2, 96, 96, 8, 4, 32, True), (2, 71, 71, 2, 2, 32, False),
-        (1, 40, 100, 4, 2, 16, False), (1, 130, 130, 4, 2, 160, False),
+        (1, 40, 100, 4, 2, 16, False), (1, 130, 130, 4, 2, 160, False), *FLASH_F32_D64,
     ):
         q = torch.randn((B, Sq, H, D), generator=gen, device="cuda")
         k = torch.randn((B, Sk, G, D), generator=gen, device="cuda")
@@ -2925,6 +2962,167 @@ def phase_lm_moe(seed: int, card: str) -> tuple[dict, list[dict]]:
             raise AssertionError(f"{name}: the dispatch on the card differs from the CPU's")
     report["seconds"] = time.perf_counter() - t0
     print(f"lm_moe: phase {report['seconds']:.1f} s [{card}]")
+    return report, rows
+
+
+def _mm_flops(cfg, B: int, S: int) -> float:
+    """Model FLOPs of one prefill, 2 x the weights a position runs through
+    (attention's own products not counted, as in ``model_flops_per_token``):
+    the VLM's N over its Np + S positions; Whisper's encoder layers over the
+    T frames and its decoder layers and tied head over the S tokens."""
+    if cfg.family == "vlm":
+        return 2.0 * cfg.num_params() * B * (cfg.n_patches + S)
+    D, F, V, hd = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_heads * cfg.hd
+    enc = cfg.n_layers * (4 * D * hd + 2 * D * F)
+    dec = cfg.n_layers * (8 * D * hd + 2 * D * F) + V * D
+    return 2.0 * B * (enc * cfg.n_frames + dec * S)
+
+
+def _whisper_sites(model, batch) -> dict:
+    """Layer 0's q, k, v at each of Whisper's three B6 sites for one
+    batch: the encoder (full, T x T), the decoder's self attention
+    (causal, S x S) and its cross attention (full, S x T, k and v from
+    the whole encoder's output)."""
+    from repro_torch.models import common, transformer
+
+    cfg = model.cfg
+    cd = cfg.compute_dtype
+    with torch.inference_mode():
+        T, D = batch["frames"].shape[1:]
+        pe = common.sinusoidal_positions(T, D, device=batch["frames"].device)
+        x = batch["frames"].to(cd) + pe.to(cd)[None]  # the encoder's input, as ``encode`` adds it
+        layer = model.enc_layers[0]
+        h = layer.ln1(x)
+        enc = (layer.attn.q(h), *layer.attn.kv(h))
+        enc_out = model.encode(batch["frames"])
+        x = model._decoder_input(batch["tokens"], 0)
+        dl = model.dec_layers[0]
+        h = dl.ln1(x)
+        dec = (dl.self_attn.q(h), *dl.self_attn.kv(h))
+        x = x + dl.self_attn.out(transformer.attention(cfg, *dec, True))
+        cross = (dl.cross_attn.q(dl.ln2(x)), *dl.cross_attn.kv(enc_out))
+    return {"enc": (enc, False), "dec": (dec, True), "cross": (cross, False)}
+
+
+def phase_lm_mm(seed: int, card: str) -> tuple[dict, list[dict]]:
+    """Whisper-tiny (the audio family) and InternVL2-2B (the VLM) at their
+    published configs, bf16, random weights from a seeded generator on
+    the card, each served by ``LMServer.generate`` on the ``lm`` batches
+    (Whisper: 1500 frames of (B, 1500, 384) beside the tokens; InternVL2:
+    256 patches of (B, 256, 2048) ahead of them, its cache sized
+    n_patches + S + new) and freed before the next is built.  B6 launches
+    per prefill: Whisper 3 x 4 (encoder, decoder self, cross attention at
+    its new head-dim-64 build), InternVL2 24 (D = 128); decode none, B5
+    none.  B6 is held against its plain version on layer 0's q, k, v of
+    every site and batch (bf16: the ``lm_dense`` bounds; float32 within
+    1e-5 / 3e-5) and timed; a one-layer float32 model of each at full
+    width gives the same last logits and decode step by the kernel and
+    blockwise routes (1e-4).  Returns the report and the B6 kernel rows."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+    from repro_torch.launch.serve import LMServer
+    from repro_torch.models import model_api
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    report, rows = {}, []
+    for name in ("whisper-tiny", "internvl2-2b"):
+        cfg = configs.get_config(name)
+        mod = model_api.get_model(cfg)
+        model = mod.init_params(cfg, gen, device="cuda")
+        audio = cfg.family == "audio"
+        weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        print(f"lm_mm: {cfg.name}: {cfg.num_params()} parameters ({weights / 2**30:.2f} GiB bf16), "
+              + (f"{cfg.n_layers} + {cfg.n_layers} layers, {cfg.n_frames} frames, " if audio
+                 else f"{cfg.n_layers} layers, {cfg.n_patches} patches, ")
+              + f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.hd} [{card}]")
+
+        def prompt_for(Bb, S, cfg=cfg, audio=audio):
+            width = cfg.n_frames if audio else cfg.n_patches
+            return {
+                "tokens": torch.randint(0, cfg.vocab, (Bb, S), generator=gen, device="cuda"),
+                "frames" if audio else "patches": torch.randn(
+                    (Bb, width, cfg.d_model), generator=gen, device="cuda"),
+            }
+
+        extra = 0 if audio else cfg.n_patches  # the VLM's cache holds the patches too
+        b6_per_prefill = 3 * cfg.n_layers if audio else cfg.n_layers
+        rep, prompts_by, servers = _serve_lm(
+            "lm_mm", cfg,
+            lambda max_len, cfg=cfg, model=model, extra=extra: LMServer(
+                cfg, model, max_len=extra + max_len, device="cuda"),
+            gen,
+            [(flash_kernel.flash_fwd_cuda, b6_per_prefill, flash_kernel.reset_launches),
+             (ssd_kernel.ssd_chunked_cuda, 0, ssd_kernel.reset_launches)],
+            card, prompt_for=prompt_for,
+        )
+        rep["weight_bytes"] = weights
+        for (Bb, S, n_new), rec in zip(LM_BATCHES, rep["batches"].values()):
+            rec["model_flops"] = _mm_flops(cfg, Bb, S)
+            rec["model_flop_share"] = rec["model_flops"] / (rec["prefill_median_ms"] * 1e-3) / BF16_FLOPS
+            print(f"lm_mm: {cfg.name} {Bb}x{S}: prefill model-FLOP share {rec['model_flop_share']:.2%} "
+                  f"({rec['model_flops'] / 1e12:.3f} TFLOP: 2 x weights a position, attention not "
+                  f"counted, of 989 TFLOP/s) [{card}]")
+        b6_launches = rep["kernel_launches"]["flash_fwd_cuda"]
+        rep["b6_f32"] = {}
+        for Bb, S, _ in LM_BATCHES:
+            batch = prompts_by[(Bb, S)]
+            with torch.inference_mode():
+                last, _ = model.prefill(batch)
+            if not torch.isfinite(last).all():
+                raise AssertionError(f"{cfg.name}: non-finite prefill logits")
+            if audio:
+                sites = _whisper_sites(model, batch)
+            else:
+                with torch.inference_mode():
+                    x = model._inputs(batch)
+                    sites = {"": (model.layers[0].qkv(x, model._positions(*x.shape[:2])), True)}
+            for site, ((q, k, v), causal) in sites.items():
+                Sq, Sk = q.shape[1], k.shape[1]
+                if audio:
+                    tag = f"whisper {site} {Bb}x{Sq}" + (f"x{Sk}" if Sk != Sq else "") + f",d{cfg.hd}"
+                else:
+                    tag = f"internvl2 {Bb}x{Sq},g{cfg.n_heads // cfg.n_kv_heads}"
+                rows.append(_b6_row("lm_mm", f"flash_fwd[{tag}]", q, k, v, b6_launches, card, causal))
+                rep["b6_f32"][tag] = _b6_check(
+                    "lm_mm", f"f32 [{tag}]", q.float(), k.float(), v.float(), causal,
+                    FLASH_F32_RTOL, FLASH_F32_ATOL, card=card,
+                )
+                del q, k, v
+            del sites, last
+        report[name] = rep
+        del model, servers, prompts_by, rep
+        torch.cuda.empty_cache()
+
+        # one layer at full width in float32: kernel route == blockwise route
+        cfg1 = dataclasses.replace(cfg, n_layers=1, param_dtype=torch.float32,
+                                   compute_dtype=torch.float32)
+        m_kernel = mod.init_params(cfg1, gen, device="cuda")
+        m_plain = type(m_kernel)(dataclasses.replace(cfg1, attn_impl="blockwise"), "cuda")
+        m_plain.load_state_dict(m_kernel.state_dict())
+        Bb, S, _ = LM_BATCHES[1]
+        batch = prompt_for(Bb, S)
+        M = extra + S + 1
+        with torch.inference_mode():
+            l_k, c_k = m_kernel.prefill(batch, max_len=M)
+            l_p, c_p = m_plain.prefill(batch, max_len=M)
+            nxt = l_p.argmax(-1)[:, None]
+            d_k, _ = m_kernel.decode_step(c_k, nxt)
+            d_p, _ = m_plain.decode_step(c_p, nxt)
+        rel_last, rel_dec = _rel_l2(l_k, l_p), _rel_l2(d_k, d_p)
+        report[name]["f32_one_layer"] = {"last_logits_rel_l2": rel_last, "decode_logits_rel_l2": rel_dec}
+        print(f"lm_mm: one-layer f32 {cfg.name} {Bb}x{S}, kernel vs blockwise routes: last logits "
+              f"rel L2 {rel_last:.3g}, one decode step {rel_dec:.3g} (<= {LM_RTOL:g}) [{card}]")
+        if not (rel_last <= LM_RTOL and rel_dec <= LM_RTOL and torch.isfinite(l_k).all()
+                and torch.isfinite(d_k).all()):
+            raise AssertionError(f"{cfg.name} kernel and blockwise routes disagree: "
+                                 f"{report[name]['f32_one_layer']}")
+        del m_kernel, m_plain, c_k, c_p, batch
+        torch.cuda.empty_cache()
+    report["seconds"] = time.perf_counter() - t0
+    print(f"lm_mm: phase {report['seconds']:.1f} s [{card}]")
     return report, rows
 
 
@@ -3784,6 +3982,8 @@ def main() -> int:
     rows += zamba_rows
     report["lm_moe"], moe_rows = phase_lm_moe(args.seed, card)
     rows += moe_rows
+    report["lm_mm"], mm_rows = phase_lm_mm(args.seed, card)
+    rows += mm_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

@@ -12,8 +12,8 @@ import dataclasses
 import importlib
 
 PORTED = (
-    "arctic_480b", "deepseek_v2_lite_16b", "granite_8b", "llama3_405b", "mamba2_370m",
-    "nemotron_4_15b", "qwen2_1_5b", "sthc_kth", "zamba2_2_7b",
+    "arctic_480b", "deepseek_v2_lite_16b", "granite_8b", "internvl2_2b", "llama3_405b",
+    "mamba2_370m", "nemotron_4_15b", "qwen2_1_5b", "sthc_kth", "whisper_tiny", "zamba2_2_7b",
 )
 
 

@@ -6,9 +6,10 @@ grating's fields passed as numpy arrays plus its metadata, so a test can
 hold port *queries* against reference queries on the very same recorded
 grating, apart from record parity.  :func:`mamba2_params_from_numpy`,
 :func:`transformer_params_from_numpy`, :func:`zamba_params_from_numpy`,
-:func:`moe_params_from_numpy` and :func:`mla_params_from_numpy` load a
-reference Mamba-2, dense-transformer, Zamba-2, MoE or MLA parameter tree
-into the port's module, and
+:func:`moe_params_from_numpy`, :func:`mla_params_from_numpy`,
+:func:`vlm_params_from_numpy` and :func:`whisper_params_from_numpy` load
+a reference Mamba-2, dense-transformer, Zamba-2, MoE, MLA, VLM or
+Whisper parameter tree into the port's module, and
 :func:`hybrid_params_from_numpy` the hybrid 3-D CNN's parameters.  Tenant kernel
 sets are numpy on both sides and need no conversion.  All take
 ``device=None`` to mean the card, as every port entry point does.
@@ -22,7 +23,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import hybrid
 from repro_torch.core.engine import FusedGrating
-from repro_torch.models import mamba2, mla, moe, transformer, zamba
+from repro_torch.models import mamba2, mla, moe, transformer, vlm, whisper, zamba
 
 
 def _to_torch(arr, device) -> torch.Tensor | None:
@@ -113,6 +114,22 @@ def _load_stack(blocks, tree: dict, where: str) -> None:
             raise ValueError(f"{where}.{name} stacks {arr.shape[:1]} layers, the model has {len(blocks)}")
         for i, b in enumerate(blocks):
             _put(getattr(b, name), arr[i], f"{where}.{name}[{i}]")
+
+
+def _load_module(module: torch.nn.Module, tree: dict, where: str) -> None:
+    """Copy one unstacked subtree (a dict per child module) into
+    ``module``, checking every field by name, shape and dtype."""
+    if not isinstance(tree, dict):
+        raise ValueError(f"{where}: got a leaf, the model holds a tree")
+    _same_keys(tree, _fields(module), where)
+    for name, sub in tree.items():
+        child = getattr(module, name)
+        if isinstance(child, torch.nn.Module):
+            _load_module(child, sub, f"{where}.{name}")
+        elif isinstance(sub, dict):
+            raise ValueError(f"{where}.{name}: got a tree, the model holds a leaf")
+        else:
+            _put(child, sub, f"{where}.{name}")
 
 
 def _load_tree(model, params: dict, stacks: dict, others=()) -> None:
@@ -215,6 +232,40 @@ def mla_params_from_numpy(params: dict, cfg: mla.MLAConfig, device=None) -> mla.
     if cfg.first_k_dense:
         stacks["dense_layers"] = model.dense_layers
     _load_tree(model, params, stacks)
+    return model
+
+
+@torch.no_grad()
+def vlm_params_from_numpy(params: dict, cfg: vlm.VLMConfig, device=None) -> vlm.VLM:
+    """The port's :class:`~repro_torch.models.vlm.VLM` holding a reference
+    parameter tree: the dense transformer's (``embed``, ``final_norm``,
+    ``lm_head`` when the embeddings are not tied, the stacked ``layers``),
+    as :func:`transformer_params_from_numpy`."""
+    model = vlm.VLM(cfg, resolve_device(device))
+    _load_tree(model, params, {"layers": model.layers})
+    return model
+
+
+@torch.no_grad()
+def whisper_params_from_numpy(
+    params: dict, cfg: whisper.WhisperConfig, device=None
+) -> whisper.Whisper:
+    """The port's :class:`~repro_torch.models.whisper.Whisper` holding a
+    reference parameter tree (numpy leaves): ``embed``, ``dec_pos``,
+    ``enc_ln_post`` and ``dec_ln_post`` (``{w, b}``), and the stacked
+    ``enc_layers`` and ``dec_layers``, each a nested tree (``ln1``,
+    ``attn`` or ``self_attn`` and ``cross_attn``, ..., attention
+    ``{wq, wk, wv, wo, bq, bv, bo}``, no ``bk``) whose leaves stack the
+    layers on axis 0.  A field that is missing, extra, or of another shape
+    or dtype than the port's module holds for ``cfg`` raises a
+    ``ValueError`` that names it."""
+    model = whisper.Whisper(cfg, resolve_device(device))
+    others = ("dec_pos", "enc_ln_post", "dec_ln_post")
+    _load_tree(model, params, {"enc_layers": model.enc_layers, "dec_layers": model.dec_layers},
+               others)
+    _put(model.dec_pos, params["dec_pos"], "dec_pos")
+    for name in others[1:]:
+        _load_module(getattr(model, name), params[name], name)
     return model
 
 

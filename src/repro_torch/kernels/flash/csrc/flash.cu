@@ -276,6 +276,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // llama3, nemotron smoke
     case 24: return launch<24>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // qwen2 smoke
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // granite smoke
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // whisper-tiny
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // every full width
     case 160: return launch<160>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);  // zamba2 shared block
     default: return cudaErrorInvalidValue;
@@ -287,6 +288,7 @@ int smem_f32(int D) {
     case 16: return (int)Plan<16>::bytes;
     case 24: return (int)Plan<24>::bytes;
     case 32: return (int)Plan<32>::bytes;
+    case 64: return (int)Plan<64>::bytes;
     case 128: return (int)Plan<128>::bytes;
     case 160: return (int)Plan<160>::bytes;
     default: return -1;

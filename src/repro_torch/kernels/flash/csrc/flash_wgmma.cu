@@ -49,7 +49,9 @@
 //    fences the proxies before that barrier.  Shared memory holds bf16
 //    only: at D 128 Q is 16 KB and a stage 32 KB, 112 KB in all, two
 //    blocks per SM; at D 160 (zamba2-2.7b's shared block, DP 192) Q is
-//    24 KB and a stage 48 KB, 169 KB, one block per SM.
+//    24 KB and a stage 48 KB, 169 KB, one block per SM; at D 64
+//    (whisper-tiny) Q is 8 KB and a stage 16 KB, 57 KB, three blocks per
+//    SM by shared memory (the launch bounds ask for two).
 // 3. The layout wgmma reads.  A row of DP columns (D rounded up to 16 or
 //    32 up to D 32, else to a multiple of 64: 24 → 32, 160 → 192; S stops
 //    at ⌈D/16⌉ k-steps and the output's zero columns are never stored) is
@@ -64,7 +66,11 @@
 //    (the transpose flag: rows are keys, the output columns run along
 //    them; halves LBO apart, 8-key groups SBO apart).  At D 160 the P·V
 //    product is one m64n192k16 per k-step into 96 float32 accumulators a
-//    thread, a sixth of it on the zero columns.  Tiles start on
+//    thread, a sixth of it on the zero columns.  At D 64 a row is a
+//    single 128-byte half: S takes the same four k-steps as D 128's
+//    first half, and P·V is one m64n64k16 per k-step (32 accumulators a
+//    thread) whose N fits one swizzle atom, so V's LBO is never used and
+//    only its SBO (8 keys, 1024 bytes) steps.  Tiles start on
 //    1024-byte boundaries so that the swizzle lines up with the address
 //    bits the hardware XORs.
 // 4. Softmax in registers.  The accumulator of S gives a thread two rows
@@ -210,6 +216,15 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[16], const uint32_t (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(1));
 }
 
@@ -436,6 +451,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     case 24: return launch<24>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     case 160: return launch<160>(q, k, v, o, B, Sq, Sk, H, G, causal, scale, s);
     default: return cudaErrorInvalidValue;
@@ -448,6 +464,7 @@ int smem_bytes(int D) {
     case 16: return (int)Plan<16>::bytes;
     case 24: return (int)Plan<24>::bytes;
     case 32: return (int)Plan<32>::bytes;
+    case 64: return (int)Plan<64>::bytes;
     case 128: return (int)Plan<128>::bytes;
     case 160: return (int)Plan<160>::bytes;
     default: return -1;

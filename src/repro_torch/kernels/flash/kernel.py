@@ -34,10 +34,12 @@ from repro_torch.kernels._build import F32, I32, VP, CudaLibrary
 Tensor = torch.Tensor
 
 # head dims the kernel is instantiated for: 128 is every dense config's
-# full width, 160 zamba2-2.7b's shared attention block (2 x 2560 / 32);
-# 24, 32 and 16 are the qwen2, granite and llama3/nemotron smoke configs
-# (and the reference test sweep's 16 and 32; 32 is also zamba2's smoke)
-HEAD_DIMS = (16, 24, 32, 128, 160)
+# full width (internvl2-2b's too), 160 zamba2-2.7b's shared attention
+# block (2 x 2560 / 32), 64 whisper-tiny's (384 / 6); 24, 32 and 16 are
+# the qwen2, granite and llama3/nemotron smoke configs (and the reference
+# test sweep's 16 and 32; 32 is also zamba2's smoke, 16 whisper's and
+# internvl2's)
+HEAD_DIMS = (16, 24, 32, 64, 128, 160)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # which kernel serves each (dtype, head dim): "wgmma" is the tensor-core
@@ -57,7 +59,7 @@ SMEM_PER_BLOCK = 232_448  # the most dynamic shared memory one H100 block may ha
 def wgmma_row(d: int) -> int:
     """Columns of a shared-memory row of the wgmma kernel at head dim
     ``d``, zero-padded to a layout ``wgmma`` reads: 16 or 32 up to 32,
-    else a multiple of 64 (24 → 32, 160 → 192)."""
+    else a multiple of 64 (24 → 32, 160 → 192; 64 is one 128-byte half)."""
     return 16 if d <= 16 else 32 if d <= 32 else -(-d // 64) * 64
 
 

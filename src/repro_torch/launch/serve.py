@@ -1376,7 +1376,12 @@ class LMServer:
     the batch's B tokens as one group, so each expert takes
     max(int(capacity_factor · B · top_k / E), 1) of them (1 for both
     published configs at B <= 4), and a token whose choice collides with
-    an earlier one loses that expert, as in the reference."""
+    an earlier one loses that expert, as in the reference.  The VLM's
+    cache holds its ``n_patches`` patch positions ahead of the prompt, so
+    its ``max_len`` counts them too (patches + prompt + generated tokens).
+    Whisper's ``max_len`` bounds the decoder's self K/V; its cross K/V are
+    fixed at the T encoder frames, and its positions end at
+    ``max_target``."""
 
     def __init__(self, cfg, params: torch.nn.Module, max_len: int = 128, device=None):
         self.device = resolve_device(device)
@@ -1387,13 +1392,38 @@ class LMServer:
             raise ValueError("params were not built for this config")
         self.model = params.to(self.device)
 
+    def _prompts(self, prompts):
+        """The prompts on the server's device: (B, S) tokens as ``long``;
+        for the ``'audio'`` and ``'vlm'`` families a batch dict, its
+        ``tokens`` as ``long`` and its floating entries (``frames``,
+        ``patches``) as they are, for the model to cast."""
+        if self.cfg.family not in ("audio", "vlm"):
+            return torch.as_tensor(prompts).to(device=self.device, dtype=torch.long)
+        if not isinstance(prompts, dict):
+            raise TypeError(
+                f"a {self.cfg.family!r} model takes a batch dict of tokens and "
+                f"{'frames' if self.cfg.family == 'audio' else 'patches'}, got {type(prompts).__name__}"
+            )
+        batch = {}
+        for name, value in prompts.items():
+            t = torch.as_tensor(value)
+            if name == "tokens":
+                batch[name] = t.to(device=self.device, dtype=torch.long)
+            elif t.is_floating_point():
+                batch[name] = t.to(device=self.device)
+            else:
+                raise ValueError(f"prompts[{name!r}] must be floating, got {t.dtype}")
+        return batch
+
     @torch.inference_mode()
     def generate(self, prompts, n_tokens: int) -> np.ndarray:
         """Greedy generation.  prompts: (B, S) integer tokens (numpy or a
-        tensor).  Returns (B, n_tokens) int32: the argmax after the
-        prompt, then after each generated token."""
-        toks = torch.as_tensor(prompts).to(device=self.device, dtype=torch.long)
-        logits, cache = self.model.prefill(toks, max_len=self.max_len)
+        tensor), or for the ``'audio'`` and ``'vlm'`` families a dict of
+        ``tokens`` (B, S) and ``frames`` (B, T, d_model) or ``patches``
+        (B, Np, d_model), passed to ``prefill`` as the reference passes
+        it.  Returns (B, n_tokens) int32: the argmax after the prompt, then
+        after each generated token."""
+        logits, cache = self.model.prefill(self._prompts(prompts), max_len=self.max_len)
         out = [logits.argmax(-1)[:, None]]
         for _ in range(n_tokens - 1):
             logits, cache = self.model.decode_step(cache, out[-1])

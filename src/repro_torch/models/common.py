@@ -1,6 +1,7 @@
 """Shared building blocks of the port's models (the part of
-``repro.models.common`` that Mamba-2 and the dense transformer use):
-init, RMSNorm, RoPE, blockwise and decode attention, activations.
+``repro.models.common`` that the ported families use): init, RMSNorm,
+LayerNorm, RoPE, sinusoidal positions, blockwise and decode attention,
+activations.
 
 Parameters are initialised with an explicit ``torch.Generator``; the
 numbers differ from ``jax.random``'s for the same seed, so parity tests
@@ -43,6 +44,17 @@ def rms_norm(x: Tensor, weight: Tensor, eps: float = 1e-5) -> Tensor:
     return (y * weight.float()).to(x.dtype)
 
 
+def layer_norm(x: Tensor, weight: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
+    """The reference's LayerNorm arithmetic (not ``F.layer_norm``): the
+    mean and the population variance in float32, ``(x − μ)·rsqrt(var +
+    eps)·w + b`` in float32, cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 def zeros_init(shape: tuple[int, ...], dtype: torch.dtype, device=None) -> Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -73,6 +85,20 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> Tensor:
+    """The classic sinusoidal table (n, d), float32, interleaved as the
+    reference's (Whisper's encoder): sin in the even columns, cos in the
+    odd ones."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(
+        torch.arange(0, d, 2, dtype=torch.float32, device=device) * (-math.log(10000.0) / d)
+    )
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div[None, :])
+    pe[:, 1::2] = torch.cos(pos * div[None, :])
+    return pe
 
 
 # ---------------------------------------------------------------------------

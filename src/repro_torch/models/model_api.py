@@ -3,22 +3,25 @@
 ``get_model(cfg)`` returns the model module of a config's family, whose
 ``init_params(cfg, generator, device)`` builds the ``nn.Module`` that
 serves it (``forward``, ``prefill``, ``decode_step``, ``init_cache``).
-Families not ported yet raise a ``TypeError`` that names them.
+A config of no registered family raises a ``TypeError``.
 """
 
 from __future__ import annotations
 
 from types import ModuleType
 
-from repro_torch.models import mamba2, mla, moe, transformer, zamba
+from repro_torch.models import mamba2, mla, moe, transformer, vlm, whisper, zamba
 
 # most-derived first: MLAConfig subclasses MoEConfig, ZambaConfig
-# subclasses Mamba2Config, and each of them TransformerConfig
+# subclasses Mamba2Config, and each of them (WhisperConfig and VLMConfig
+# too) TransformerConfig
 _DISPATCH: list[tuple[type, ModuleType]] = [
     (mla.MLAConfig, mla),
     (moe.MoEConfig, moe),
     (zamba.ZambaConfig, zamba),
     (mamba2.Mamba2Config, mamba2),
+    (whisper.WhisperConfig, whisper),
+    (vlm.VLMConfig, vlm),
     (transformer.TransformerConfig, transformer),
 ]
 
@@ -29,9 +32,9 @@ def get_model(cfg) -> ModuleType:
             return mod
     family = getattr(cfg, "family", None)
     raise TypeError(
-        f"model family {family!r} ({type(cfg).__name__}) is not ported to "
-        "repro_torch yet (left: 'audio', 'vlm'); ported: 'moe' (MLAConfig, MoEConfig), "
-        "'hybrid' (ZambaConfig), 'ssm' (Mamba2Config), 'dense' (TransformerConfig)"
+        f"no model registered for family {family!r} ({type(cfg).__name__}); ported: "
+        "'moe' (MLAConfig, MoEConfig), 'hybrid' (ZambaConfig), 'ssm' (Mamba2Config), "
+        "'audio' (WhisperConfig), 'vlm' (VLMConfig), 'dense' (TransformerConfig)"
     )
 
 

@@ -2,9 +2,11 @@
 of ``repro.models.transformer``), and ``TransformerConfig``, the base
 of the other families' configs.
 
-One layer definition covers the dense family through config switches:
-GQA kv-head count, QKV bias (qwen2), MLP flavour (SwiGLU or nemotron's
-squared ReLU), RoPE theta, tied embeddings.  The mesh, remat and
+The VLM (``models/vlm.py``) is this model over patch embeddings
+prepended to the tokens.  One layer definition covers the dense family
+through config switches: GQA kv-head count, QKV bias (qwen2), MLP
+flavour (SwiGLU or nemotron's squared ReLU), RoPE theta, tied
+embeddings.  The mesh, remat and
 training knobs of the reference's config are not here: they come with
 training.
 
@@ -21,8 +23,10 @@ new position in place and attends over all M slots masked to
 position M raises a ``ValueError`` (the reference clamps the write onto
 the last slot and answers wrongly).
 
-``attn_impl`` picks the prefill attention route.  ``'kernel'`` (the
-default) goes through :func:`repro_torch.kernels.flash.ops.flash_attention`:
+``attn_impl`` picks the prefill attention route of :func:`attention`
+(causal or full; :func:`causal_attention` is its causal call, the one
+every decoder-only family takes).  ``'kernel'`` (the default) goes
+through :func:`repro_torch.kernels.flash.ops.flash_attention`:
 the hand-written CUDA kernel for CUDA tensors, its plain version for
 CPU tensors.  ``'blockwise'`` runs the plain
 :func:`common.blockwise_attention` on either device, the reference
@@ -86,13 +90,20 @@ class TransformerConfig:
         return self.n_layers * per_layer + emb + D
 
 
+def attention(cfg: TransformerConfig, q: Tensor, k: Tensor, v: Tensor, causal: bool) -> Tensor:
+    """Attention of q (B, Sq, H, hd) over all of k, v (B, Sk, G, hd) by
+    ``cfg.attn_impl``; ``causal`` masks top-left aligned (query i sees
+    keys up to i)."""
+    if cfg.attn_impl == "kernel":
+        return flash_ops.flash_attention(q, k, v, causal)
+    if cfg.attn_impl == "blockwise":
+        return common.blockwise_attention(q, k, v, causal=causal, block_k=cfg.block_k)
+    raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}")
+
+
 def causal_attention(cfg: TransformerConfig, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     """Causal attention of a full sequence by ``cfg.attn_impl``."""
-    if cfg.attn_impl == "kernel":
-        return flash_ops.flash_attention(q, k, v, True)
-    if cfg.attn_impl == "blockwise":
-        return common.blockwise_attention(q, k, v, causal=True, block_k=cfg.block_k)
-    raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}; expected one of {ATTN_IMPLS}")
+    return attention(cfg, q, k, v, True)
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -208,8 +219,12 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: Tensor) -> Tensor:
         """tokens (B, S) → logits (B, S, vocab)."""
-        x = self._embed(tokens)
-        positions = self._positions(*tokens.shape)
+        return self._forward_embedded(self._embed(tokens))
+
+    def _forward_embedded(self, x: Tensor) -> Tensor:
+        """Every position's logits of embedded inputs x (B, S, D) at
+        positions 0 … S − 1 (the reference's ``trunk`` and ``unembed``)."""
+        positions = self._positions(*x.shape[:2])
         for block in self.layers:
             x, _, _ = block(x, positions)
         return self._head(x)
@@ -228,12 +243,15 @@ class Transformer(nn.Module):
     def prefill(self, tokens: Tensor, max_len: int | None = None):
         """Run the full prompt (B, S): last logits (B, vocab) and a cache
         of ``max_len`` (default S) positions holding the prompt's K/V."""
-        B, S = tokens.shape
+        return self._prefill_embedded(self._embed(tokens), max_len)
+
+    def _prefill_embedded(self, x: Tensor, max_len: int | None):
+        """Prefill of embedded inputs x (B, S, D) at positions 0 … S − 1."""
+        B, S = x.shape[:2]
         M = max_len or S
         if M < S:
             raise ValueError(f"max_len={M} cannot hold a prompt of {S} tokens")
         cache = self.init_cache(B, M)
-        x = self._embed(tokens)
         positions = self._positions(B, S)
         for i, block in enumerate(self.layers):
             x, k, v = block(x, positions)

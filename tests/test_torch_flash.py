@@ -148,7 +148,7 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
     with pytest.raises(ValueError, match="no kernel for dtype"):
         t_kernel.flash_fwd_cuda(q.half(), k.half(), v.half())
     assert t_kernel.flash_fwd_cuda.launches == 0
-    assert t_kernel.HEAD_DIMS == (16, 24, 32, 128, 160)
+    assert t_kernel.HEAD_DIMS == (16, 24, 32, 64, 128, 160)
 
 
 def test_routes_send_bf16_to_the_wgmma_kernel():
@@ -158,22 +158,26 @@ def test_routes_send_bf16_to_the_wgmma_kernel():
 
 
 def test_head_dims_and_dtypes_unchanged():
-    assert t_kernel.HEAD_DIMS == (16, 24, 32, 128, 160)
+    assert t_kernel.HEAD_DIMS == (16, 24, 32, 64, 128, 160)
     assert t_kernel.DTYPES == {torch.float32: 0, torch.bfloat16: 1}
 
 
 # bf16 shared rows, zero-padded to a layout wgmma reads: 16 or 32 columns
-# up to 32, else a multiple of 64
-WGMMA_ROW = {16: 16, 24: 32, 32: 32, 128: 128, 160: 192}
+# up to 32, else a multiple of 64 (64: one 128-byte half)
+WGMMA_ROW = {16: 16, 24: 32, 32: 32, 64: 64, 128: 128, 160: 192}
 
 
-@pytest.mark.parametrize("dtype,d", list(itertools.product((torch.float32, torch.bfloat16), (16, 24, 32, 128, 160))))
+@pytest.mark.parametrize("dtype,d", list(itertools.product((torch.float32, torch.bfloat16), (16, 24, 32, 64, 128, 160))))
 def test_smem_plan_fits_one_block(dtype, d):
     """Every build's dynamic shared memory fits one block (227 KB); up to
     head dim 128 two blocks of it fit one SM's 228 KB (each block holds 1
-    KB more), at 160 (zamba2-2.7b's shared block) one."""
+    KB more), at 160 (zamba2-2.7b's shared block) one; at 64 (whisper-tiny)
+    the bf16 build is 2·64·(64 + 6·64) + 1024 = 58,368 bytes, the float32
+    one 51,200."""
     n = t_kernel.smem_bytes(dtype, d)
     assert 0 < n <= t_kernel.SMEM_PER_BLOCK
+    if d == 64:
+        assert n == (58_368 if dtype == torch.bfloat16 else 51_200)
     assert (2 * (n + 1024) <= 228 * 1024) == (d <= 128)
     if dtype == torch.bfloat16:
         dp = WGMMA_ROW[d]
@@ -217,7 +221,7 @@ _REFUSALS = {
         lambda: [_misaligned((1, 16, 2, 16))] + [t.to(torch.bfloat16) for t in T(*_qkv(4, 1, 16, 16, 2, 1, 16))[1:]],
         "16-byte boundary",
     ),
-    "unknown head dim": (lambda: T(*_qkv(4, 1, 16, 16, 2, 1, 64)), "no kernel for head dim"),
+    "unknown head dim": (lambda: T(*_qkv(4, 1, 16, 16, 2, 1, 48)), "no kernel for head dim"),
     "kv heads do not divide": (lambda: T(*_qkv(4, 1, 16, 16, 3, 2, 16)), "do not split"),
 }
 
@@ -274,6 +278,8 @@ BF16_SWEEP = [
     (2, 37, 37, 4, 4, 16, True), (2, 37, 37, 4, 2, 16, False), (1, 40, 100, 4, 2, 16, False),
     (1, 40, 100, 4, 2, 16, True), (1, 100, 40, 4, 2, 32, True), (2, 71, 71, 6, 1, 32, False),
     (2, 130, 130, 6, 1, 24, False), (1, 300, 300, 4, 4, 128, True), (1, 130, 130, 4, 2, 160, True),
+    (1, 130, 130, 6, 6, 64, True), (1, 40, 100, 6, 3, 64, False), (1, 100, 40, 4, 2, 64, True),
+    (2, 37, 150, 6, 6, 64, False),
 ]
 
 

@@ -176,12 +176,17 @@ def test_entry_points_need_a_device(pair):
 
 
 def test_unported_families_and_configs_raise():
-    with pytest.raises(TypeError, match="'audio'"):
-        model_api.get_model(types.SimpleNamespace(family="audio"))
+    with pytest.raises(TypeError, match="'no-such-family'"):
+        model_api.get_model(types.SimpleNamespace(family="no-such-family"))
     assert model_api.get_model(transformer.TransformerConfig()) is transformer
     assert model_api.get_model(t_configs.get_smoke_config("mamba2-370m")) is t_mamba2
-    with pytest.raises(ValueError, match="'whisper-tiny' is unknown or not ported"):
-        t_configs.get_config("whisper-tiny")
+    # the audio and VLM families are ported: both configs resolve
+    assert t_configs.get_config("whisper-tiny").family == "audio"
+    assert t_configs.get_config("internvl2-2b").family == "vlm"
+    assert model_api.get_model(t_configs.get_smoke_config("whisper-tiny")).__name__.endswith("whisper")
+    assert model_api.get_model(t_configs.get_smoke_config("internvl2-2b")).__name__.endswith("vlm")
+    with pytest.raises(ValueError, match="'no-such-config' is unknown or not ported"):
+        t_configs.get_config("no-such-config")
     with pytest.raises(ValueError, match="'no-such-model' is unknown or not ported"):
         t_configs.get_smoke_config("no-such-model")
     assert t_configs.get_config("sthc_kth").num_kernels == 9

@@ -220,7 +220,9 @@ new = ("repro_torch.kernels.conv3d.kernel", "repro_torch.kernels.conv3d.ops",
        "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
        "repro_torch.models.zamba", "repro_torch.configs.zamba2_2_7b",
        "repro_torch.models.moe", "repro_torch.models.mla",
-       "repro_torch.configs.arctic_480b", "repro_torch.configs.deepseek_v2_lite_16b")
+       "repro_torch.configs.arctic_480b", "repro_torch.configs.deepseek_v2_lite_16b",
+       "repro_torch.models.whisper", "repro_torch.models.vlm",
+       "repro_torch.configs.whisper_tiny", "repro_torch.configs.internvl2_2b")
 assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
 print("isolated", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """

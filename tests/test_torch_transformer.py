@@ -42,6 +42,8 @@ from repro_torch.models import model_api  # noqa: E402
 from repro_torch.models import moe as t_moe  # noqa: E402
 from repro_torch.models import zamba as t_zamba  # noqa: E402
 from repro_torch.models import transformer as t_tf  # noqa: E402
+from repro_torch.models import vlm as t_vlm  # noqa: E402
+from repro_torch.models import whisper as t_whisper  # noqa: E402
 
 ARCHS = ["granite-8b", "qwen2-1.5b", "llama3-405b", "nemotron-4-15b"]
 ATOL = 1e-4
@@ -100,8 +102,14 @@ def test_model_registry_dispatches_most_derived_first():
     assert issubclass(t_mla.MLAConfig, t_moe.MoEConfig)
     assert issubclass(t_moe.MoEConfig, t_tf.TransformerConfig)
     assert order.index(t_mla.MLAConfig) < order.index(t_moe.MoEConfig) < order.index(t_tf.TransformerConfig)
-    with pytest.raises(TypeError, match="'audio'.*left: 'audio', 'vlm'"):
-        model_api.get_model(types.SimpleNamespace(family="audio"))
+    # WhisperConfig and VLMConfig are TransformerConfigs, so they too come first
+    assert model_api.get_model(t_configs.get_smoke_config("whisper-tiny")) is t_whisper
+    assert model_api.get_model(t_configs.get_smoke_config("internvl2-2b")) is t_vlm
+    for cls in (t_whisper.WhisperConfig, t_vlm.VLMConfig):
+        assert issubclass(cls, t_tf.TransformerConfig)
+        assert order.index(cls) < order.index(t_tf.TransformerConfig)
+    with pytest.raises(TypeError, match="'no-such-family'.*ported: "):
+        model_api.get_model(types.SimpleNamespace(family="no-such-family"))
 
 
 # --------------------------------------------------------- common blocks
