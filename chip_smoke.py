@@ -308,7 +308,42 @@ Phases, each reported on lines of its own:
              and timed as a ``kernel:`` row beside SDPA; a one-layer
              float32 model of each at full width gives the same last
              logits and decode step by the kernel and blockwise routes
-             (1e-4).  Runs last, so that no earlier phase runs in a
+             (1e-4).
+15. lm_train — LM training through ``launch.train.train_loop`` on the
+             card, one model at a time: qwen2-1.5b (28 layers, bf16, full
+             remat, attention on B6) and mamba2-370m (48 layers, bf16,
+             full remat, the SSD on B5) at their published configs, 8
+             steps of 4 x 2048 tokens from the token stream, AdamW
+             (float32 moments), saves off in the timed steps and one
+             final save.  Each step timed between two synchronisations:
+             median of steps 2-8, tokens/s, model-FLOP share (6 x
+             params a token over 989 TFLOP/s), peak memory, the loss of
+             steps 0 and 7 (step 0 finite and within 2.5 of ln V, gated;
+             step 7 below step 0, gated), each kernel's launches per step
+             (the same every step and never 0, gated: with full remat
+             the forward and its recomputation each launch).  Then one
+             more forward and backward: every parameter's gradient
+             exists, is finite and is not all zero (gated); one profiled
+             step (device ms by kind, busy share, the AdamW update's host
+             ms); the kernel's ``kernel:`` row on layer 0's operands at
+             the training shape; B5 and B6 relaunched on the same inputs
+             bitwise (gated); ``ssd_ops.ssd(impl='kernel')`` on CUDA
+             inputs that require grad has a ``grad_fn`` and autograd of
+             the plain version's gradients (1e-5, gated).  Float32 gradients of the kernel routes
+             (B6, B5) against the plain routes (blockwise, chunked) from
+             the same weights and batch, every parameter within 1e-4
+             relative L2 (gated): each family's smoke config (2 x 48;
+             MoE and MLA at a capacity with no drops) and one
+             full-width qwen2-1.5b layer at 1 x 512.  The restart
+             contract: mamba2-370m at full width with 8 of its 48
+             layers, 2 x 512, 12 steps, saves every 4, synchronous,
+             under ``torch.use_deterministic_algorithms(True)``: killed
+             at steps 5 and 9 under ``run_with_restarts``, its final
+             parameters bitwise those of an uninterrupted run (gated;
+             where an op has no deterministic CUDA version it is named
+             and the runs are held within 1e-6); save and restore
+             seconds.  Every line ends in the card's name and power
+             limit.  Runs last, so that no earlier phase runs in a
              changed process state.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
@@ -874,12 +909,14 @@ def _b5_passes(prof: dict, calls: int) -> dict:
 def _device_time(prof, wall_ms: float, calls: int) -> dict:
     """Per call: the device time of the kernels a profile holds, by name,
     their sum (busy time) and its share of ``wall_ms``.  The step markers
-    a profiler schedule adds are not kernels."""
+    a profiler schedule adds and the ranges ``record_function`` marks are
+    not kernels."""
     from torch.autograd import DeviceType
 
     by_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep"):
+        if (e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")
+                and not getattr(e, "is_user_annotation", False)):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     busy_ms = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -3935,6 +3972,497 @@ def phase_mesh(kernel, ref, seed: int, card: str) -> tuple[dict, list[dict]]:
     return report, rows
 
 
+LM_TRAIN_STEPS = 8  # train_loop steps of each full-size model
+LM_TRAIN_SHAPE = (4, 2048)  # (sequences, tokens) a step
+LM_TRAIN_MODELS = ("qwen2-1.5b", "mamba2-370m")
+# one arch of each LM family, for the kernel-route gradients on smoke configs
+LM_TRAIN_FAMILIES = ("qwen2-1.5b", "mamba2-370m", "zamba2-2.7b", "arctic-480b",
+                     "deepseek-v2-lite-16b", "whisper-tiny", "internvl2-2b")
+LM_GRAD_RTOL = 1e-4  # kernel vs plain route gradients, relative L2 per parameter
+# the restart check: mamba2-370m at full width, cut to 8 of its 48 layers
+RESTART_LAYERS, RESTART_SHAPE, RESTART_STEPS, RESTART_SAVE_EVERY = 8, (2, 512), 12, 4
+RESTART_FAIL_AT = (5, 9)
+RESTART_RTOL = 1e-6  # only where an op on the path has no deterministic CUDA version
+
+
+@contextlib.contextmanager
+def _recording_train_steps(kernels: dict, record: list):
+    """Within the block, every step function ``launch.train.make_step_fn``
+    makes is timed on the host clock between two synchronisations and
+    records its loss, grad norm and the launches of each of ``kernels``
+    (name -> wrapper); the last step's model and optimizer state are kept
+    in ``record[-1]`` for the checks after the loop."""
+    from repro_torch.launch import train as train_lib
+
+    orig = train_lib.make_step_fn
+
+    def make(cfg, opt_cfg, tc):
+        fn = orig(cfg, opt_cfg, tc)
+
+        def step_fn(model, opt_state, err_state, batch, step):
+            torch.cuda.synchronize()
+            before = {n: k.launches for n, k in kernels.items()}
+            t0 = time.perf_counter()
+            out = fn(model, opt_state, err_state, batch, step)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            metrics = out[3]
+            record.append({
+                "step": step, "ms": ms, "loss": float(metrics["loss"]),
+                "grad_norm": float(metrics["grad_norm"]),
+                "launches": {n: k.launches - before[n] for n, k in kernels.items()},
+                "model": out[0], "opt": out[1],
+            })
+            if len(record) > 1:  # keep only the last step's state alive
+                record[-2].pop("model", None)
+                record[-2].pop("opt", None)
+            return out
+
+        return step_fn
+
+    train_lib.make_step_fn = make
+    try:
+        yield
+    finally:
+        train_lib.make_step_fn = orig
+
+
+def _grad_check(tag, cfg, model, batch, card) -> dict:
+    """One more forward and backward on ``batch``, outside the timed steps:
+    every trainable parameter's gradient must exist, be finite and not be
+    all zero."""
+    from repro_torch.launch import train as train_lib
+
+    _, grads = train_lib.loss_and_grads(cfg, model, batch)
+    names = list(train_lib.trainable(model))
+    missing = [n for n in names if n not in grads or grads[n] is None]
+    bad = [n for n in names if n not in missing and not bool(torch.isfinite(grads[n]).all())]
+    zero = [n for n in names if n not in missing and not bool((grads[n] != 0).any())]
+    print(f"lm_train: {tag} gradients of {len(names)} parameters: {len(missing)} missing, "
+          f"{len(bad)} not finite, {len(zero)} all zero [{card}]")
+    if missing or bad or zero:
+        raise AssertionError(f"{tag}: gradients missing {missing}, not finite {bad}, all zero {zero}")
+    del grads
+    return {"parameters": len(names)}
+
+
+def _train_full(name, seed, card, kernels) -> tuple[dict, list, dict]:
+    """``train_loop`` on a full-size config for ``LM_TRAIN_STEPS`` steps at
+    ``LM_TRAIN_SHAPE`` on the card (saves off in the timed steps, one final
+    save); returns the report, the per-step records and the last step's
+    model and a batch for the checks after it."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.data import tokens as token_data
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model_api
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get_config(name)
+    Bb, S = LM_TRAIN_SHAPE
+    tc = train_lib.TrainConfig(steps=LM_TRAIN_STEPS, batch=Bb, seq=S,
+                               save_every=LM_TRAIN_STEPS + 1, seed=seed)
+    steps, logs = [], []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        t0 = time.perf_counter()
+        with _recording_train_steps(kernels, steps):
+            out = train_lib.train_loop(cfg, tc, ckpt, opt_cfg=AdamWConfig(lr=1e-3),
+                                       log=logs.append, device="cuda")
+        loop_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    totals = {n: k.launches for n, k in kernels.items()}
+    last = steps[-1]
+    model, opt = last.pop("model"), last.pop("opt")
+    losses = [r["loss"] for r in steps]
+    timed = [r["ms"] for r in steps[1:]]  # steps 2 .. 8: the first builds cuBLAS plans
+    med = float(np.median(timed))
+    tokens = Bb * S
+    flops = model_api.model_flops_per_token(cfg, train=True) * tokens
+    share = flops / (med * 1e-3) / BF16_FLOPS
+    per_step = [r["launches"] for r in steps]
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    state = sum(t.numel() * t.element_size() for t in (*opt["m"].values(), *opt["v"].values()))
+    rec = {
+        "config": cfg.name, "params": cfg.num_params(), "steps": len(steps),
+        "batch": [Bb, S], "step_ms": [r["ms"] for r in steps], "median_step_ms": med,
+        "tokens_per_s": tokens / (med * 1e-3), "model_flops_per_step": flops,
+        "model_flop_share": share, "max_memory_allocated": peak, "weight_bytes": weights,
+        "adam_state_bytes": state, "losses": losses,
+        "grad_norms": [r["grad_norm"] for r in steps], "launches_per_step": per_step,
+        "launches": totals, "loop_s": loop_s, "final_save_and_setup_s": loop_s - sum(r["ms"] for r in steps) / 1e3,
+        "log": logs,
+    }
+    print(f"lm_train: {cfg.name} ({cfg.num_params()} parameters, {cfg.n_layers} layers, "
+          f"remat {cfg.remat_policy}) {Bb}x{S}, {len(steps)} steps: median step (2-{len(steps)}) "
+          f"{med:.2f} ms (min {min(timed):.2f}, max {max(timed):.2f}; first {steps[0]['ms']:.2f}), "
+          f"{rec['tokens_per_s']:.1f} tok/s, model-FLOP share {share:.2%} (6 x params x "
+          f"{tokens} tokens = {flops / 1e12:.2f} TFLOP a step, of 989 TFLOP/s) [{card}]")
+    print(f"lm_train: {cfg.name} peak memory {peak / 2**30:.2f} GiB (weights {weights / 2**30:.2f}, "
+          f"AdamW m+v {state / 2**30:.2f}); loss step 0 {losses[0]:.4f} (ln V = "
+          f"{np.log(cfg.vocab):.4f}), step {len(steps) - 1} {losses[-1]:.4f}; launches per step "
+          + "; ".join(f"{n} {[p[n] for p in per_step]}" for n in kernels)
+          + f"; loop {loop_s:.1f} s [{card}]")
+    if len(steps) != LM_TRAIN_STEPS or not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name}: steps {len(steps)}, losses {losses}")
+    if abs(losses[0] - np.log(cfg.vocab)) > 2.5:
+        raise AssertionError(f"{cfg.name}: step-0 loss {losses[0]} far from ln V")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{cfg.name}: the loss did not fall: {losses}")
+    for n in kernels:
+        counts = {p[n] for p in per_step}
+        if len(counts) != 1 or 0 in counts:
+            raise AssertionError(f"{cfg.name}: {n} launched {[p[n] for p in per_step]} times a step")
+    ds = token_data.TokenStreamConfig(vocab=cfg.vocab, seq_len=S, seed=seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             token_data.batch_at_step(ds, LM_TRAIN_STEPS, Bb).items()}
+    rec["grads"] = _grad_check(cfg.name, cfg, model, batch, card)
+    return rec, (cfg, model, opt, batch)
+
+
+# the parts of a train step whose device time a profile attributes, each
+# the sum of these profiler rows (an op's row holds the kernels it and its
+# children launched): the autograd nodes of the two kernels' Functions,
+# whose backward is the plain version under autograd, and the
+# cross-entropy's log_softmax; the AdamW update is the kernels inside its
+# record_function range
+STEP_PARTS = {
+    "attention backward (plain blockwise)": ("autograd::engine::evaluate_function: _FlashAttentionBackward",),
+    "SSD backward (plain chunked)": ("autograd::engine::evaluate_function: _SSDBackward",),
+    "cross-entropy log_softmax (forward, backward)": ("aten::_log_softmax", "aten::_log_softmax_backward_data"),
+}
+
+
+def _kernels_in_range(prof, label: str):
+    """Device ms of the kernels that start inside the device-side range
+    of ``record_function(label)``; None where the trace has no such range."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    spans = [e.time_range for e in events if e.name == label and e.device_type == DeviceType.CUDA]
+    if not spans:
+        return None
+    lo, hi = spans[0].start, spans[0].end
+    return sum(
+        e.time_range.elapsed_us() for e in events
+        if e.device_type == DeviceType.CUDA and e.name != label
+        and not getattr(e, "is_user_annotation", False) and lo <= e.time_range.start <= hi
+    ) / 1e3
+
+
+def _profiled_step(tag, cfg, model, opt, batch, card) -> dict:
+    """One more train step under torch.profiler, with the AdamW update's
+    host time between two synchronisations: device ms by kind, busy share,
+    the device ms of ``STEP_PARTS``, the optimizer's share of the step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.launch import train as train_lib
+    from repro_torch.optim import AdamWConfig
+
+    tc = train_lib.TrainConfig(steps=LM_TRAIN_STEPS, batch=batch["tokens"].shape[0],
+                               seq=batch["tokens"].shape[1])
+    step_fn = train_lib.make_step_fn(cfg, AdamWConfig(lr=1e-3), tc)
+    opt_ms = []
+    orig = train_lib.adamw_lib.adamw_update
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with record_function("adamw_update"):
+            out = orig(*a, **kw)
+            torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    train_lib.adamw_lib.adamw_update = timed_update
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            t0 = time.perf_counter()
+            step_fn(model, opt, {}, batch, LM_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        train_lib.adamw_lib.adamw_update = orig
+    prof = _device_time(tp, wall_ms, 1)
+    kinds = prof["by_kind_ms"] = _by_kind(prof["by_name_ms"])
+    rows = {e.key: e.device_time_total / 1e3 for e in tp.key_averages()}
+    parts = {part: sum(rows.get(k, 0.0) for k in keys) for part, keys in STEP_PARTS.items()}
+    parts["AdamW update"] = _kernels_in_range(tp, "adamw_update")
+    prof["parts_device_ms"] = parts
+    prof["optimizer_ms"] = opt_ms[0]
+    prof["optimizer_share"] = opt_ms[0] / prof["wall_ms"]
+    busy = ("not measured" if prof["busy_share"] is None
+            else f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.1%})")
+    print(f"profile: lm_train {tag} step wall {prof['wall_ms']:.2f} ms, device busy {busy}; AdamW "
+          f"update {opt_ms[0]:.2f} ms ({prof['optimizer_share']:.1%} of the step, host clock) [{card}]")
+    for kn, ms in prof["top_kernels_ms"]:
+        print(f"profile:   {ms:9.3f} ms  {kn}")
+    print(f"profile: lm_train {tag} by kind: "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in kinds.items()) + f" [{card}]")
+    print(f"profile: lm_train {tag} device ms of: "
+          + ", ".join(f"{k} " + ("not measured" if ms is None else f"{ms:.3f}") for k, ms in parts.items())
+          + f" [{card}]")
+    return prof
+
+
+def _route_grads(tag, cfg, batch, gen, card) -> dict:
+    """The gradients of one float32 loss on the kernel routes (B6 for
+    attention, B5 for the SSD) and on the plain ones (``blockwise``,
+    ``chunked``) from the same weights and batch: every parameter within
+    ``LM_GRAD_RTOL`` (relative L2)."""
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model_api
+
+    mod = model_api.get_model(cfg)
+    m_k = mod.init_params(cfg, gen, device="cuda")
+    plain = {"attn_impl": "blockwise"}
+    if hasattr(cfg, "ssd_impl"):
+        plain["ssd_impl"] = "chunked"
+    m_p = type(m_k)(dataclasses.replace(cfg, **plain), "cuda")
+    m_p.load_state_dict(m_k.state_dict())
+    for m in (m_k, m_p):
+        m.requires_grad_(True)
+    loss_k, g_k = train_lib.loss_and_grads(cfg, m_k, batch)
+    loss_p, g_p = train_lib.loss_and_grads(m_p.cfg, m_p, batch)
+    rel = {}
+    for n in g_p:
+        den = float(torch.linalg.vector_norm(g_p[n].float()))
+        num = float(torch.linalg.vector_norm(g_k[n].float() - g_p[n].float()))
+        rel[n] = num / den if den > 0 else num
+    worst = max(rel, key=rel.get)
+    res = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "worst_param": worst, "worst_rel_l2": rel[worst], "parameters": len(rel)}
+    print(f"lm_train: {tag} f32 gradients, kernel vs plain routes: loss {float(loss_k):.6f} vs "
+          f"{float(loss_p):.6f}, worst of {len(rel)} parameters {worst} rel L2 {rel[worst]:.3g} "
+          f"(<= {LM_GRAD_RTOL:g}) [{card}]")
+    if not (rel[worst] <= LM_GRAD_RTOL and np.isfinite(float(loss_k))):
+        raise AssertionError(f"{tag}: kernel-route gradients disagree with the plain route's: {res}")
+    del m_k, m_p, g_k, g_p
+    torch.cuda.empty_cache()
+    return res
+
+
+def _smoke_batch(cfg, gen, B=2, S=48) -> dict:
+    batch = {
+        "tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda"),
+        "labels": torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda"),
+    }
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn((B, cfg.n_frames, cfg.d_model), generator=gen, device="cuda")
+    if cfg.family == "vlm":
+        batch["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen, device="cuda")
+    return batch
+
+
+def _kernels_repeat(train_args, card) -> dict:
+    """B5 and B6 at the training shapes, each launched twice on the same
+    inputs: the two outputs must be equal bit for bit (the recomputation
+    of full remat relaunches them)."""
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+    out = {}
+    q, k, v = train_args["b6"]
+    a, b = flash_kernel.flash_fwd_cuda(q, k, v, True), flash_kernel.flash_fwd_cuda(q, k, v, True)
+    out["b6_repeat_bitwise"] = bool(torch.equal(a.view(torch.int16), b.view(torch.int16)))
+    args, chunk = train_args["b5"]
+    (y1, s1), (y2, s2) = ssd_kernel.ssd_chunked_cuda(*args, chunk), ssd_kernel.ssd_chunked_cuda(*args, chunk)
+    out["b5_repeat_bitwise"] = _bits_equal(y1, y2) and _bits_equal(s1, s2)
+    print(f"lm_train: repeated launches on the same inputs bitwise equal: B6 {out['b6_repeat_bitwise']}, "
+          f"B5 {out['b5_repeat_bitwise']} [{card}]")
+    if not (out["b6_repeat_bitwise"] and out["b5_repeat_bitwise"]):
+        raise AssertionError(f"a kernel answered differently on the same inputs: {out}")
+    out["ssd_op_grads"] = _ssd_op_grads(args, chunk, card)
+    return out
+
+
+def _ssd_op_grads(args, chunk, card) -> dict:
+    """``ssd_ops.ssd(impl='kernel')`` on CUDA inputs that require grad: its
+    outputs carry a graph, and its gradients for x, dt, A, B and C are
+    those of autograd through the plain version on the same inputs
+    (relative L2 <= ``SSD_RTOL``)."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ref as ssd_ref
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    L = args[0].shape[1]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in args]
+        y, S = fn(*leaves)
+        gy = torch.randn(y.shape, generator=gen.manual_seed(2), device="cuda")
+        gS = torch.randn(S.shape, generator=gen.manual_seed(3), device="cuda")
+        has_graph = y.grad_fn is not None and S.grad_fn is not None
+        return has_graph, torch.autograd.grad((y * gy).sum() + (S * gS).sum(), leaves)
+
+    graph_k, g_k = grads(lambda x, dt, A, B, C: ssd_ops.ssd(x, dt, A, B, C, chunk=chunk, impl="kernel"))
+    _, g_p = grads(lambda x, dt, A, B, C: ssd_ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk))
+    rel = {n: _rel_l2(a, b) for n, a, b in zip(("x", "dt", "A", "B", "C"), g_k, g_p)}
+    bitwise = all(_bits_equal(a, b) for a, b in zip(g_k, g_p))
+    print(f"lm_train: ssd op (kernel route) on CUDA inputs that require grad {tuple(args[0].shape)}: "
+          f"grad_fn {graph_k}; gradients vs autograd of the plain version: "
+          + ", ".join(f"{n} {r:.3g}" for n, r in rel.items())
+          + f" (<= {SSD_RTOL:g}), bitwise {bitwise} [{card}]")
+    if not (graph_k and max(rel.values()) <= SSD_RTOL):
+        raise AssertionError(f"the SSD op's kernel route has no graph or other gradients: {rel}")
+    return {"grad_fn": graph_k, "rel_l2": rel, "bitwise": bitwise, "L": L}
+
+
+def _restart_check(seed, card) -> dict:
+    """The restart contract on the card: mamba2-370m at full width with
+    ``RESTART_LAYERS`` layers, ``RESTART_STEPS`` steps of
+    ``RESTART_SHAPE``, saving every ``RESTART_SAVE_EVERY``, once straight
+    through and once killed at ``RESTART_FAIL_AT`` under
+    ``run_with_restarts``; synchronous saves, deterministic algorithms.
+    The final parameters must be equal bit for bit."""
+    import tempfile
+
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault import FailureInjector, run_with_restarts
+    from repro_torch.launch import train as train_lib
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get_config("mamba2-370m", n_layers=RESTART_LAYERS)
+    Bb, S = RESTART_SHAPE
+    tc = train_lib.TrainConfig(steps=RESTART_STEPS, batch=Bb, seq=S,
+                               save_every=RESTART_SAVE_EVERY, async_ckpt=False, seed=seed)
+    io = {"save": [], "restore": []}
+
+    def timing(kind, fn):
+        def wrapped(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(self, *a, **kw)
+            if kind == "save" or out is not None:
+                io[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def run(ckpt, failure=None):
+        return run_with_restarts(lambda: train_lib.train_loop(
+            cfg, tc, ckpt, opt_cfg=AdamWConfig(lr=1e-3), failure=failure,
+            log=lambda *_: None, device="cuda"))
+
+    saved = (CheckpointManager.save, CheckpointManager.restore_latest)
+    CheckpointManager.save = timing("save", saved[0])
+    CheckpointManager.restore_latest = timing("restore", saved[1])
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    exception = None
+    root = tempfile.mkdtemp(prefix="lm_restart_")
+    try:
+        torch.use_deterministic_algorithms(True)
+        try:
+            clean = run(os.path.join(root, "clean"))
+            faulty = run(os.path.join(root, "faulty"), FailureInjector(fail_at_steps=RESTART_FAIL_AT))
+        except RuntimeError as e:
+            if "deterministic" not in str(e):
+                raise
+            exception = str(e).splitlines()[0]
+            print(f"lm_train: restart check: an op has no deterministic CUDA version: {exception}; "
+                  f"the two runs are held within {RESTART_RTOL:g} instead [{card}]")
+            torch.use_deterministic_algorithms(False)
+            shutil.rmtree(root, ignore_errors=True)
+            io = {"save": [], "restore": []}
+            clean = run(os.path.join(root, "clean"))
+            faulty = run(os.path.join(root, "faulty"), FailureInjector(fail_at_steps=RESTART_FAIL_AT))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        CheckpointManager.save, CheckpointManager.restore_latest = saved
+        shutil.rmtree(root, ignore_errors=True)
+    names = list(clean["params"])
+    if exception is None:
+        diff = [n for n in names if not torch.equal(clean["params"][n], faulty["params"][n])]
+        worst = 0.0
+    else:
+        rel = {n: _rel_l2(faulty["params"][n].float(), clean["params"][n].float()) for n in names}
+        diff = [n for n, r in rel.items() if not r <= RESTART_RTOL]
+        worst = max(rel.values())
+    res = {"config": cfg.name, "layers": cfg.n_layers, "batch": [Bb, S], "steps": RESTART_STEPS,
+           "fail_at": list(RESTART_FAIL_AT), "deterministic_exception": exception,
+           "params_differing": diff, "worst_rel_l2": worst, "loss": clean["loss"],
+           "save_s": io["save"], "restore_s": io["restore"]}
+    print(f"lm_train: restart {cfg.name} {cfg.n_layers} of 48 layers {Bb}x{S}, {RESTART_STEPS} steps, "
+          f"killed at {RESTART_FAIL_AT}: final parameters "
+          + ("bitwise equal" if exception is None and not diff else f"{len(diff)} of {len(names)} differ")
+          + f" ({len(names)} tensors; deterministic algorithms "
+          + ("on" if exception is None else "off: " + exception) + "); "
+          f"{len(io['save'])} saves, median {np.median(io['save']):.3f} s; "
+          f"{len(io['restore'])} restores, median {np.median(io['restore']):.3f} s [{card}]")
+    if diff or clean["steps_done"] != faulty["steps_done"] or len(io["restore"]) != len(RESTART_FAIL_AT):
+        raise AssertionError(f"the restarted run differs from the uninterrupted one: {res}")
+    return res
+
+
+def phase_lm_train(seed: int, card: str) -> tuple[dict, list[dict]]:
+    """LM training on the card through ``launch.train.train_loop``: each of
+    ``LM_TRAIN_MODELS`` at its published config, then the kernel routes'
+    gradients against the plain routes' on every family's smoke config
+    and one full-width qwen2-1.5b layer, B5 and B6 relaunched bitwise, and
+    the restart contract.  Returns the report and the B5 / B6 rows at the
+    training shapes."""
+    from repro_torch import configs
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kernels = {"flash_fwd_cuda": flash_kernel.flash_fwd_cuda, "ssd_chunked_cuda": ssd_kernel.ssd_chunked_cuda}
+    report, rows, train_args = {}, [], {}
+    for name in LM_TRAIN_MODELS:
+        own = "flash_fwd_cuda" if name.startswith("qwen2") else "ssd_chunked_cuda"
+        flash_kernel.reset_launches()
+        ssd_kernel.reset_launches()
+        rec, (cfg, model, opt, batch) = _train_full(name, seed, card, {own: kernels[own]})
+        other = [n for n in kernels if n != own]
+        if any(kernels[n].launches for n in other):  # the main path of this model launches only its own
+            raise AssertionError(f"{name} launched {other}")
+        rec["profile_step"] = _profiled_step(cfg.name, cfg, model, opt, batch, card)
+        # the kernel's row at the training shape: layer 0's operands of the
+        # trained model on the next batch
+        with torch.no_grad():
+            x0 = model.embed.to(cfg.compute_dtype)[batch["tokens"]]
+            if own == "flash_fwd_cuda":
+                blk = model.layers[0]
+                q, k, v = blk.qkv(x0, model._positions(*x0.shape[:2]))
+                train_args["b6"] = (q, k, v)
+                rows.append(_b6_row("lm_train", f"flash_fwd[train {cfg.name} {LM_TRAIN_SHAPE[0]}x{LM_TRAIN_SHAPE[1]}]", q, k, v,
+                                    rec["launches"][own], card))
+            else:
+                args = _ssd_launch_args(model.layers[0].ssd_inputs(x0), cfg.chunk)
+                train_args["b5"] = (args, cfg.chunk)
+                passes = _b5_passes(rec["profile_step"], rec["launches_per_step"][-1][own])
+                rows.append(_b5_row("lm_train", f"ssd_chunked[train {cfg.name} {LM_TRAIN_SHAPE[0]}x{LM_TRAIN_SHAPE[1]}]", args, cfg.chunk,
+                                    rec["launches"][own], passes, card))
+        report[name] = rec
+        del model, opt, batch, x0
+        torch.cuda.empty_cache()
+    report["repeat"] = _kernels_repeat(train_args, card)
+    del train_args
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(seed)
+    report["route_grads"] = {}
+    for name in LM_TRAIN_FAMILIES:
+        cfg = configs.get_smoke_config(name)
+        if cfg.family == "moe":  # no capacity drops: a near tie moves no token out
+            cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+        report["route_grads"][name] = _route_grads(f"{cfg.name}", cfg, _smoke_batch(cfg, gen), gen, card)
+    cfg1 = configs.get_config("qwen2-1.5b", n_layers=1, param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    report["route_grads"]["qwen2-1.5b one layer"] = _route_grads(
+        "qwen2-1.5b one full-width layer 1x512", cfg1, _smoke_batch(cfg1, gen, B=1, S=512), gen, card)
+    report["restart"] = _restart_check(seed, card)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"lm_train: phase {report['seconds']:.1f} s [{card}]")
+    return report, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3984,6 +4512,8 @@ def main() -> int:
     rows += moe_rows
     report["lm_mm"], mm_rows = phase_lm_mm(args.seed, card)
     rows += mm_rows
+    report["lm_train"], train_lm_rows = phase_lm_train(args.seed, card)
+    rows += train_lm_rows
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

@@ -247,7 +247,7 @@ def restore_resharded(
     with LM training: raises."""
     raise NotImplementedError(
         "restoring onto a device mesh's shardings is not ported to the torch "
-        "package yet (sharded training state, ROADMAP A.7); use restore() and "
+        "package yet (sharded training state, ROADMAP A.7b); use restore() and "
         "move the leaves"
     )
 

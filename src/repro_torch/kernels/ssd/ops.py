@@ -7,6 +7,12 @@ plain version, :func:`ref.ssd_chunked_ref`.  ``impl='chunked'`` runs the
 plain chunked form on either device and alone takes ``initial_state``
 (the reference's ``impl='jnp'``).  There is no fallback from one route
 to the other.
+
+The kernel route is a ``torch.autograd.Function``, as the flash op is:
+its backward recomputes :func:`ref.ssd_chunked_ref` under autograd and
+returns its gradients for x, dt, A, B and C.  There is no backward
+kernel (the reference's Pallas SSD has none either), so a Mamba-2 loss
+gets the same gradients by either route.
 """
 
 from __future__ import annotations
@@ -42,6 +48,27 @@ def pad_to_chunk(x: Tensor, dt: Tensor, B: Tensor, C: Tensor, chunk: int):
     return x, dt, B, C
 
 
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        if _on_cuda(x):
+            return _kernel.ssd_chunked_cuda(
+                x.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(),
+                C.contiguous(), chunk,
+            )
+        return _ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gS):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            y, S = _ref.ssd_chunked_ref(*leaves, chunk=ctx.chunk)
+            grads = torch.autograd.grad((y, S), leaves, (gy, gS))
+        return (*grads, None)
+
+
 def ssd(
     x: Tensor,
     dt: Tensor,
@@ -68,13 +95,7 @@ def ssd(
                 "initial_state is only supported by impl='chunked' (used for "
                 "sequence-parallel composition); the kernel starts from 0."
             )
-        if _on_cuda(x):
-            y, S = _kernel.ssd_chunked_cuda(
-                x.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(),
-                C.contiguous(), chunk,
-            )
-        else:
-            y, S = _ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+        y, S = _SSD.apply(x, dt, A, B, C, chunk)
     elif impl == "chunked":
         y, S = _ref.ssd_chunked_ref(
             x, dt, A, B, C, chunk=chunk, initial_state=initial_state

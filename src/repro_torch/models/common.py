@@ -1,7 +1,7 @@
 """Shared building blocks of the port's models (the part of
 ``repro.models.common`` that the ported families use): init, RMSNorm,
 LayerNorm, RoPE, sinusoidal positions, blockwise and decode attention,
-activations.
+activations, the cross-entropy loss and rematerialisation.
 
 Parameters are initialised with an explicit ``torch.Generator``; the
 numbers differ from ``jax.random``'s for the same seed, so parity tests
@@ -12,10 +12,12 @@ input's dtype, as in the reference.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 Tensor = torch.Tensor
 
@@ -271,3 +273,78 @@ ACTIVATIONS: dict[str, Callable[[Tensor], Tensor]] = {
     "squared_relu": squared_relu,
     "silu": torch.nn.functional.silu,
 }
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: Tensor, labels: Tensor, mask: Tensor | None = None) -> Tensor:
+    """Mean next-token CE; logits (B, S, V) of any float dtype, labels
+    (B, S) integer.  The reference's arithmetic: ``log_softmax`` of the
+    logits in float32, the labels' entries gathered, their mean.
+
+    ``mask`` (B, S) excludes positions (padding, an image prefix) from
+    both the numerator and the denominator."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if mask is None:
+        return -torch.mean(ll)
+    mask = mask.float()
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialisation
+# ---------------------------------------------------------------------------
+
+REMAT_POLICIES = ("full", "dots", "none")
+# the matrix products whose outputs the 'dots' policy keeps
+_DOT_OPS = frozenset(
+    getattr(torch.ops.aten, name).default for name in ("mm", "bmm", "addmm", "baddbmm")
+)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOT_OPS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _records(args) -> bool:
+    """Will autograd record a call on ``args``: grad mode on and a tensor,
+    or a module's parameter, among them that requires grad?"""
+    if not torch.is_grad_enabled():
+        return False
+    return any(
+        (isinstance(a, Tensor) and a.requires_grad)
+        or (isinstance(a, torch.nn.Module) and any(p.requires_grad for p in a.parameters()))
+        for a in args
+    )
+
+
+def remat(cfg, fn: Callable) -> Callable:
+    """``fn`` under activation checkpointing by ``cfg.remat`` and
+    ``cfg.remat_policy`` (the reference's ``transformer._remat``): while
+    autograd records, ``'full'`` keeps only ``fn``'s inputs and recomputes
+    the rest in the backward, ``'dots'`` keeps the outputs of its matrix
+    products too, ``'none'`` (or ``remat=False``) checkpoints nothing.
+    Where autograd does not record (prefill, decode, ``no_grad``, frozen
+    parameters) ``fn`` runs as it is."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; expected one of {REMAT_POLICIES}")
+    if not cfg.remat or cfg.remat_policy == "none":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(_ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    @functools.wraps(fn)
+    def wrapped(*args):
+        if not _records(args):
+            return fn(*args)
+        # the blocks draw no random numbers: no RNG state to replay
+        return _ckpt.checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return wrapped

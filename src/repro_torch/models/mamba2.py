@@ -12,8 +12,10 @@ Block (as the reference):
 
 :class:`Mamba2` is an ``nn.Module`` holding its config, the embedding,
 the final norm and an ``nn.ModuleList`` of :class:`Mamba2Block` (the
-reference scans stacked layers instead).  It serves only: parameters do
-not require grad.  Decode carries (conv_state (n_layers, B, d_conv−1,
+reference scans stacked layers instead).  Parameters are made without
+``requires_grad`` (a trainer turns it on); :func:`loss_fn` is the
+cross-entropy of ``forward``'s logits, each block rematerialised by
+``cfg.remat_policy``.  Decode carries (conv_state (n_layers, B, d_conv−1,
 conv_dim), ssm_state (n_layers, B, H, P, N)) — O(1) memory and FLOPs per
 token.
 
@@ -21,7 +23,8 @@ token.
 through :func:`repro_torch.kernels.ssd.ops.ssd`: the hand-written CUDA
 kernel for CUDA tensors, its plain version for CPU tensors — the
 reference's ``'pallas'``.  ``'chunked'`` runs the plain chunked form on
-either device — the reference's ``'jnp'``.
+either device — the reference's ``'jnp'``.  Both carry gradients: the
+kernel route's backward recomputes the plain version under autograd.
 """
 
 from __future__ import annotations
@@ -216,8 +219,13 @@ class Mamba2(nn.Module):
     def forward(self, tokens: Tensor) -> Tensor:
         """tokens (B, S) → logits (B, S, vocab)."""
         x = self.embed.to(self.cfg.compute_dtype)[tokens]
+
+        def layer(x, block):
+            return block(x)[0]
+
+        layer = common.remat(self.cfg, layer)
         for block in self.layers:
-            x, _ = block(x)
+            x = layer(x, block)
         return self._head(x)
 
     def init_cache(self, batch: int, max_len: int | None = None) -> dict:
@@ -262,6 +270,9 @@ class Mamba2(nn.Module):
         return logits, {
             "conv": torch.stack(convs), "ssm": torch.stack(ssms), "length": cache["length"] + 1,
         }
+
+
+loss_fn = transformer.loss_fn  # the cross-entropy of forward's logits
 
 
 @torch.no_grad()

@@ -28,7 +28,10 @@ reference's keys and shapes (``ckv_dense``, ``kr_dense``, ``ckv_moe``,
 ``length``); decode writes in place and raises a ``ValueError`` at
 position ``max_len`` (the reference clamps the write onto the last
 slot), and ``prefill`` raises when ``max_len`` is shorter than the
-prompt.  It serves only: parameters do not require grad.
+prompt.  Parameters are made without ``requires_grad`` (a trainer
+turns it on); :func:`loss_fn` is the MoE family's (the cross-entropy
+plus ``router_aux_coef`` × the aux), each layer rematerialised by
+``cfg.remat_policy``.
 """
 
 from __future__ import annotations
@@ -237,11 +240,15 @@ class MLA(nn.Module):
         """tokens (B, S) → (logits (B, S, vocab), Σ aux / n_layers)."""
         x = self._embed(tokens)
         positions = self._positions(*tokens.shape)
+
+        def layer(x, blk):
+            return blk.ffn(blk.full(x, positions)[0])
+
+        layer = common.remat(self.cfg, layer)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for _, stack in self._stacks():
             for blk in stack:
-                x, _ = blk.full(x, positions)
-                x, a = blk.ffn(x)
+                x, a = layer(x, blk)
                 aux = aux + a
         return self._head(x), aux / self.cfg.n_layers
 
@@ -296,6 +303,9 @@ class MLA(nn.Module):
                 x = blk.decode(x, pos, cache[f"ckv_{name}"][i], cache[f"kr_{name}"][i])
                 x, _ = blk.ffn(x)
         return self._head(x)[:, 0], {**cache, "length": pos + 1}
+
+
+loss_fn = moe.loss_fn  # cross-entropy + router_aux_coef × aux
 
 
 @torch.no_grad()

@@ -26,8 +26,10 @@ layers, with the dense transformer's K/V cache and prefill and decode
 (so decode writes in place and raises past ``max_len``); ``forward``
 also returns the mean of the layers' load-balance aux.  Its prefill
 attention takes ``cfg.attn_impl``'s route as the dense transformer's
-does (kernel B6 on the card).  It serves only: parameters do not
-require grad.
+does (kernel B6 on the card).  Parameters are made without
+``requires_grad`` (a trainer turns it on); :func:`loss_fn` adds
+``router_aux_coef`` × the mean aux to the cross-entropy, each layer
+rematerialised by ``cfg.remat_policy``.
 """
 
 from __future__ import annotations
@@ -254,12 +256,24 @@ class MoE(transformer.Transformer):
         """tokens (B, S) → (logits (B, S, vocab), mean aux)."""
         x = self._embed(tokens)
         positions = self._positions(*tokens.shape)
+
+        def layer(x, block):
+            q, k, v = block.qkv(x, positions)
+            return block.ffn(block.attn_out(x, transformer.causal_attention(self.cfg, q, k, v)))
+
+        layer = common.remat(self.cfg, layer)
         auxs = []
         for block in self.layers:
-            q, k, v = block.qkv(x, positions)
-            x, aux = block.ffn(block.attn_out(x, transformer.causal_attention(self.cfg, q, k, v)))
+            x, aux = layer(x, block)
             auxs.append(aux)
         return self._head(x), torch.stack(auxs).mean()
+
+
+def loss_fn(cfg: MoEConfig, model: nn.Module, batch: dict) -> Tensor:
+    """Cross-entropy of the logits plus ``router_aux_coef`` × the aux."""
+    logits, aux = model(batch["tokens"])
+    ce = common.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
+    return ce + cfg.router_aux_coef * aux
 
 
 @torch.no_grad()

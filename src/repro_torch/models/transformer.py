@@ -6,15 +6,19 @@ The VLM (``models/vlm.py``) is this model over patch embeddings
 prepended to the tokens.  One layer definition covers the dense family
 through config switches: GQA kv-head count, QKV bias (qwen2), MLP
 flavour (SwiGLU or nemotron's squared ReLU), RoPE theta, tied
-embeddings.  The mesh, remat and
-training knobs of the reference's config are not here: they come with
-training.
+embeddings.  ``remat`` and ``remat_policy`` are the reference's
+(``common.remat``); its mesh knobs (``fsdp_gather_weights``,
+``lean_softmax``, sequence sharding) come with sharded training.
 
 :class:`Transformer` is an ``nn.Module`` holding its config, the
 embedding, the final norm and an ``nn.ModuleList`` of
 :class:`TransformerBlock` (the reference scans stacked layers instead),
-with weights in the reference's ``x @ w`` orientation and names.  It
-serves only: parameters do not require grad.
+with weights in the reference's ``x @ w`` orientation and names.  Its
+parameters are made without ``requires_grad``, so a server holds no
+graph; a trainer turns gradients on (``model.requires_grad_(True)``).
+:func:`loss_fn` is the training objective: the cross-entropy of
+``forward``'s logits, each block rematerialised in the backward by
+``cfg.remat_policy``.
 
 The KV cache is preallocated: ``k`` and ``v`` of (n_layers, B, M, G, hd)
 in the compute dtype, and the filled ``length``.  Decode writes each
@@ -72,7 +76,9 @@ class TransformerConfig:
     tie_embeddings: bool = False
     param_dtype: torch.dtype = torch.bfloat16
     compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
     block_k: int = 512
+    remat_policy: str = "full"  # 'full' | 'dots' | 'none' (common.remat)
     attn_impl: str = "kernel"  # 'kernel' (flash ops) | 'blockwise' (plain)
 
     @property
@@ -225,8 +231,13 @@ class Transformer(nn.Module):
         """Every position's logits of embedded inputs x (B, S, D) at
         positions 0 … S − 1 (the reference's ``trunk`` and ``unembed``)."""
         positions = self._positions(*x.shape[:2])
+
+        def layer(x, block):
+            return block(x, positions)[0]
+
+        layer = common.remat(self.cfg, layer)
         for block in self.layers:
-            x, _, _ = block(x, positions)
+            x = layer(x, block)
         return self._head(x)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -283,6 +294,14 @@ class Transformer(nn.Module):
             attn = common.decode_attention(q, cache["k"][i], cache["v"][i], kv_len)
             x = block.finish(x, attn)
         return self._head(x)[:, 0], {**cache, "length": pos + 1}
+
+
+def loss_fn(cfg: TransformerConfig, model: nn.Module, batch: dict) -> Tensor:
+    """The mean next-token cross-entropy of ``model``'s logits on
+    ``batch["tokens"]`` against ``batch["labels"]`` (positions outside
+    ``batch["mask"]``, where given, excluded)."""
+    logits = model(batch["tokens"])
+    return common.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def fill_params(model: Transformer, cfg: TransformerConfig, g: torch.Generator) -> None:

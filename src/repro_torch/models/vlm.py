@@ -11,7 +11,8 @@ at positions 0 … Np + S − 1.  The cache's ``length`` is Np + S, so
 decode's RoPE positions continue after the patches, and ``max_len``
 counts the patches: a prefill raises when it is shorter than Np + S.
 Prefill attention takes ``cfg.attn_impl`` as the dense family does (B6
-at head dim 128 on the card).
+at head dim 128 on the card).  :func:`loss_fn` takes the cross-entropy
+over the text positions only (the patch prefix is masked out).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import common, transformer
 
 Tensor = torch.Tensor
 
@@ -57,6 +58,14 @@ class VLM(transformer.Transformer):
                 f"{batch['tokens'].shape[1]} tokens (max_len counts the patches)"
             )
         return self._prefill_embedded(self._inputs(batch), M)
+
+
+def loss_fn(cfg: VLMConfig, model: transformer.Transformer, batch: dict) -> Tensor:
+    """The cross-entropy of the logits at the text positions (after the
+    ``n_patches`` prefix) against ``batch["labels"]`` (B, S)."""
+    logits = model(batch)
+    n_patches = batch["patches"].shape[1]
+    return common.softmax_cross_entropy(logits[:, n_patches:], batch["labels"], batch.get("mask"))
 
 
 @torch.no_grad()

@@ -13,8 +13,10 @@ reference's tree names: ``embed``, ``dec_pos``, ``enc_ln_post`` and
 ``dec_ln_post`` (each ``{w, b}``), ``enc_layers[i]`` ``{ln1, attn, ln2,
 mlp}`` and ``dec_layers[i]`` ``{ln1, self_attn, ln2, cross_attn, ln3,
 mlp}``, attention ``{wq, wk, wv, wo, bq, bv, bo}``, mlp ``{w1, b1, w2,
-b2}``, weights in the reference's ``x @ w`` orientation.  It serves
-only: parameters do not require grad.
+b2}``, weights in the reference's ``x @ w`` orientation.  Parameters
+are made without ``requires_grad`` (a trainer turns it on);
+:func:`loss_fn` is the cross-entropy of ``forward``'s logits, each
+encoder and decoder layer rematerialised by ``cfg.remat_policy``.
 
 Attention of a full sequence goes through
 :func:`repro_torch.models.transformer.attention` by ``cfg.attn_impl``:
@@ -196,8 +198,9 @@ class Whisper(nn.Module):
         T, D = frames.shape[1:]
         pe = common.sinusoidal_positions(T, D, device=self.embed.device)
         x = frames.to(device=self.embed.device, dtype=cd) + pe.to(cd)[None]  # an add in cd
+        layer_fn = common.remat(self.cfg, lambda x, layer: layer(x))
         for layer in self.enc_layers:
-            x = layer(x)
+            x = layer_fn(x, layer)
         return self.enc_ln_post(x)
 
     def _decoder_input(self, tokens: Tensor, start: int) -> Tensor:
@@ -213,10 +216,15 @@ class Whisper(nn.Module):
         """batch {frames (B, T, D), tokens (B, S)} → logits (B, S, vocab)."""
         enc = self.encode(batch["frames"])
         x = self._decoder_input(batch["tokens"], 0)
-        for layer in self.dec_layers:
+
+        def layer_fn(x, enc, layer):
             h = layer.ln1(x)
             x = x + layer.self_attn.full(h, h, causal=True)
-            x = layer.finish(x, layer.cross_attn.full(layer.ln2(x), enc, causal=False))
+            return layer.finish(x, layer.cross_attn.full(layer.ln2(x), enc, causal=False))
+
+        layer_fn = common.remat(self.cfg, layer_fn)
+        for layer in self.dec_layers:
+            x = layer_fn(x, enc, layer)
         return self._logits(x)
 
     def _cache(self, batch: int, max_len: int, frames: int) -> dict:
@@ -302,6 +310,13 @@ class Whisper(nn.Module):
             o = common.decode_attention(q, cache["cross_k"][i], cache["cross_v"][i], full_T)
             x = layer.finish(x, layer.cross_attn.out(o))
         return self._logits(x)[:, 0], {**cache, "length": pos + 1}
+
+
+def loss_fn(cfg: WhisperConfig, model: nn.Module, batch: dict) -> Tensor:
+    """The mean cross-entropy of the decoder's logits on ``batch``
+    (``frames``, ``tokens``) against ``batch["labels"]``."""
+    logits = model(batch)
+    return common.softmax_cross_entropy(logits, batch["labels"], batch.get("mask"))
 
 
 def fill_params(model: Whisper, cfg: WhisperConfig, g: torch.Generator) -> None:

@@ -15,7 +15,10 @@ zamba2-2.7b).
 ``n_layers`` ``Mamba2Block``; the reference stacks them as (n_segments,
 shared_every, …) and scans) with one :class:`SharedAttentionBlock`
 beside them.  Segment s is the shared block, then layers [s·E,
-(s+1)·E).  It serves only: parameters do not require grad.
+(s+1)·E).  Parameters are made without ``requires_grad`` (a trainer
+turns it on); :func:`loss_fn` is the cross-entropy of ``forward``'s
+logits, each Mamba layer rematerialised by ``cfg.remat_policy`` as the
+reference's are.
 
 The cache keeps the reference's keys and shapes: a K/V cache per
 shared-block site (``attn_k``, ``attn_v`` (n_segments, B, max_len, G,
@@ -174,10 +177,15 @@ class Zamba(mamba2.Mamba2):
         x0 = self._embed(tokens)
         positions = self._positions(*tokens.shape)
         x = x0
+
+        def layer(x, block):
+            return block(x)[0]
+
+        layer = common.remat(self.cfg, layer)
         for s in range(self.cfg.n_segments):
             x, _, _ = self.shared(x, x0, positions)
             for block in self._segment(s):
-                x, _ = block(x)
+                x = layer(x, block)
         return self._head(x)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -255,6 +263,9 @@ class Zamba(mamba2.Mamba2):
                 cache["conv"][s, e] = conv_st
                 cache["ssm"][s, e] = ssm_st
         return self._head(x)[:, 0], {**cache, "length": pos + 1}
+
+
+loss_fn = transformer.loss_fn  # the cross-entropy of forward's logits
 
 
 @torch.no_grad()

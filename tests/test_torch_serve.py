@@ -222,7 +222,8 @@ new = ("repro_torch.kernels.conv3d.kernel", "repro_torch.kernels.conv3d.ops",
        "repro_torch.models.moe", "repro_torch.models.mla",
        "repro_torch.configs.arctic_480b", "repro_torch.configs.deepseek_v2_lite_16b",
        "repro_torch.models.whisper", "repro_torch.models.vlm",
-       "repro_torch.configs.whisper_tiny", "repro_torch.configs.internvl2_2b")
+       "repro_torch.configs.whisper_tiny", "repro_torch.configs.internvl2_2b",
+       "repro_torch.launch.train", "repro_torch.launch.specs", "repro_torch.data.tokens")
 assert all(m in sys.modules for m in new), [m for m in new if m not in sys.modules]
 print("isolated", len([n for n in sys.modules if n.startswith("repro_torch")]))
 """
