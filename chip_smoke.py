@@ -87,7 +87,7 @@ Phases, each reported on lines of its own:
              random weights from a seeded generator on the card) served
              by ``LMServer.generate``: 4 prompts x 2048 tokens then 32
              greedy tokens, and 2 x 1000 (padded to 1024 inside the SSD)
-             then 8.  One warm-up and 5 timed calls each of prefill-only
+             then 8.  One warm-up and 3 timed calls each of prefill-only
              and full generation; the SSD kernel's (B5) launch counter,
              zeroed before the timed calls, must read 48 x the prefills
              run.  B5 is held against its plain version on layer 0's SSD
@@ -309,7 +309,23 @@ Phases, each reported on lines of its own:
              float32 model of each at full width gives the same last
              logits and decode step by the kernel and blockwise routes
              (1e-4).
-15. lm_train — LM training through ``launch.train.train_loop`` on the
+15. roofline — the op counter (``launch/op_analysis.py``) and the
+             three-term roofline (``launch/roofline.py``) on the card:
+             the qwen2-1.5b and mamba2-370m training steps (the
+             ``lm_train`` recipe, 4 x 2048) and the qwen2-1.5b 4 x 2048
+             prefill, each counted twice, on ``meta`` and around one real
+             step on the card; the two counts must be equal in FLOPs, in
+             bytes and per op name (gated: B5 and B6 count by their own
+             formula whichever route runs them).  Each step is then timed
+             with no counter (median of 5 after a warm-up) beside its
+             roofline: measured ms, the bound and its term, bound /
+             measured, FLOPs by class, the counter's temp bytes against
+             ``max_memory_allocated`` less the arguments (reported, not
+             gated), B5's and B6's forward and plain-backward buckets and
+             the ops that move the most bytes.  Every kernel row's bound
+             (phases kernels, lm*, classify, train, mesh) comes from
+             ``op_analysis.kernel_cost`` on ``roofline``'s constants.
+16. lm_train — LM training through ``launch.train.train_loop`` on the
              card, one model at a time: qwen2-1.5b (28 layers, bf16, full
              remat, attention on B6) and mamba2-370m (48 layers, bf16,
              full remat, the SSD on B5) at their published configs, 8
@@ -372,10 +388,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
-TF32_FLOPS = 495e12  # H100 SXM dense TF32 tensor cores; B5's 3xTF32 runs three per product
+from repro_torch.launch import op_analysis, roofline  # noqa: E402
+
+# the card's constants (H100 SXM): one source, launch/roofline.py
+HBM_BYTES_PER_S = roofline.HBM_BW
+BF16_FLOPS = roofline.PEAK_FLOPS_BF16
 SSD_RTOL = 1e-5
 FLASH_BF16_RTOL = 1e-2  # the plain version rounds q·scale to bf16 before the dot
 # B6 in bf16 against the plain version on the same inputs upcast to float32
@@ -426,7 +443,9 @@ DECODE_DOT_RTOL = 1e-5
 DECODE_OUT_RTOL = 1e-2
 MEM_STREAM_FRAMES = (4096, 8192)  # a cursor stream, then one twice as long
 SERVE_REPS = 7  # timed calls per serving mode, after one warm-up
-LM_REPS = 5  # timed calls per LM batch and kind, after one warm-up
+# timed calls per LM batch and kind, after one warm-up (3 since the
+# roofline phase joined: the script must end well inside its time limit)
+LM_REPS = 3
 LM_BATCHES = ((4, 2048, 32), (2, 1000, 8))  # (prompts, prompt tokens, new tokens)
 # the scheduler phase: open-loop rates as fractions of the pooled rung's
 # frames/s, requests per rate (one 1024-frame stream each) and the client
@@ -509,10 +528,13 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
 
 
-def _bound_ms(nbytes: float, flops: float, rate: float = F32_FLOPS) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _kernel_bound(name: str, peak: float | None = None, **shape) -> tuple[float, str]:
+    """The least ms one call of kernel ``name`` at ``shape`` could take
+    (``op_analysis.kernel_cost`` on ``roofline``'s constants; ``peak``
+    overrides its class's peak FLOP/s) and whether bytes or operations
+    bound it."""
+    s, by = roofline.kernel_bound_s(op_analysis.kernel_cost(name, **shape), peak)
+    return s * 1e3, by
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -685,7 +707,7 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
 
     rows = []
 
-    def row(name, fn, plain, library, check, nbytes, flops, launches_of, reps=20, graph=False):
+    def row(name, fn, plain, library, check, bound, launches_of, reps=20, graph=False):
         out = fn()
         exp = plain()
         err, ok = check(out, exp)
@@ -695,7 +717,7 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
         ms = timer(fn, reps)
         plain_ms = _time_ms(plain, 3)
         lib_ms = timer(library, reps) if library is not None else None
-        bound, by = _bound_ms(nbytes, flops)
+        bound, by = bound
         r = {
             "name": name,
             "route": "cuda",
@@ -726,8 +748,6 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
     # B1: sequential rung, a tenant group of 2 streams x 4 windows per chunk
     x = cplx(8, C, F)
     gr = cplx(O, C, F)
-    b1_bytes = (x.numel() + gr.numel() + 8 * O * F) * 8
-    b1_flops = 8 * 8 * O * C * F
     with spectral_conv.full_precision():
         for version, name in ((2, "spectral_mac"), (1, "spectral_mac[v1]")):
             row(
@@ -735,7 +755,8 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
                 lambda v=version: kernel.spectral_mac_cuda(x, gr, v),
                 lambda v=version: ref.spectral_mac_ref(x, gr, v),
                 lambda: torch.einsum("bcf,ocf->bof", x, gr),
-                mac_bits, b1_bytes, b1_flops,
+                mac_bits,
+                _kernel_bound("spectral_mac", B=8, O=O, C=C, F=F),
                 ("spectral_mac", "src/repro/kernels/stmul/kernel.py:147"),
             )
     del x, gr
@@ -771,16 +792,15 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
             sel = torch.complex(pre.float(), pim.float())[
                 torch.as_tensor(offs, device=dev)[:, None] + torch.arange(O, device=dev)[None]
             ]
-            used = len({o + j for o in offs for j in range(O)})
-            nbytes = (xx.numel() * 8 + 2 * used * C * Fx * pre.element_size()
-                      + 16 * O * Fx * 8)
             with spectral_conv.full_precision():
                 row(
                     f"spectral_mac_grouped[{dname}{tag}]",
                     lambda: kernel.spectral_mac_grouped_cuda(xx, pre, pim, offs, O),
                     lambda: ref.spectral_mac_grouped_ref(xx, pre, pim, offs, O),
                     lambda: torch.einsum("bcf,bocf->bof", xx, sel),
-                    mac_bits, nbytes, 8 * 16 * O * C * Fx,
+                    mac_bits,
+                    _kernel_bound("spectral_mac_grouped", B=16, C=C, F=Fx, o_start=offs, n_out=O,
+                                  itemsize=pre.element_size()),
                     ("spectral_mac_grouped", "src/repro/kernels/stmul/kernel.py:248"),
                 )
             del pre, pim, sel
@@ -831,7 +851,8 @@ def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
             lambda k=k, v=v: kernel.topk_readout_cuda(v, gidx, k),
             lambda k=k, v=v: ref.topk_readout_ref(v, gidx, k),
             lambda k=k, R_=R_: torch.topk(vals_tiefree[:R_], k, dim=-1),
-            topk_check, R_ * L * 4 + L * 4 + R_ * k * 8, 0,
+            topk_check,
+            _kernel_bound("topk_readout", R=R_, L=L, k=k),
             ("topk_readout", "src/repro/kernels/stmul/kernel.py:434"), graph=True,
         )
     # tie runs, NaN and -inf stretches and signed zeros on the slice
@@ -2099,19 +2120,6 @@ def phase_ckpt(seed: int) -> dict:
     return report
 
 
-def _ssd_cost(Bb, L, H, G, P, N, Q) -> tuple[float, float]:
-    """Bytes (each input read once, each output written once) and FLOPs of
-    one chunked SSD scan.  Per (batch, chunk, group): the causal lower
-    triangle of the scores C·Bᵀ, Q(Q+1)/2 dot products of length N
-    (Q(Q+1)N), which depend on the group's B and C only and so are shared
-    by its H / G heads.  Per (batch, chunk, head): the intra-chunk
-    product, Q(Q+1)/2 rows of P (Q(Q+1)P), and the state readout and the
-    state update, 2QNP each."""
-    nbytes = 4 * (2 * Bb * L * H * P + Bb * L * H + H + 2 * Bb * L * G * N + Bb * H * P * N)
-    flops = Bb * (L // Q) * (G * Q * (Q + 1) * N + H * (Q * (Q + 1) * P + 4 * Q * N * P))
-    return nbytes, flops
-
-
 def _by_kind(by_name: dict) -> dict:
     """A profile's device ms summed by kind of kernel: B5, B6, cuBLAS
     GEMMs, PyTorch's elementwise kernels, and the rest."""
@@ -2267,11 +2275,11 @@ def _b5_row(phase, name, args, chunk, launches, passes, card="") -> dict:
     print(f"{phase}: B5 {Bb}x{L} passes per call in a profiled prefill: "
           + ", ".join(f"{n} {p_ms:.4f} ms" for n, p_ms in passes.items())
           + (f" [{card}]" if card else ""))
-    cost = _ssd_cost(Bb, L, H, G, P, N, chunk)
     # the products run on the TF32 tensor cores, three per product
     # (3xTF32); the FMA pipes' float32 bound is kept beside it
-    bound, by = _bound_ms(*cost, rate=TF32_FLOPS / 3)
-    bound_f32, _ = _bound_ms(*cost)
+    shape = dict(Bb=Bb, L=L, H=H, G=G, P=P, N=N, chunk=chunk)
+    bound, by = _kernel_bound("ssd", **shape)
+    bound_f32 = _kernel_bound("ssd", roofline.PEAK_FLOPS_F32, **shape)[0]
     return {
         "name": name,
         "route": "cuda",
@@ -2361,16 +2369,6 @@ def phase_lm(seed: int) -> tuple[dict, list[dict]]:
     return report, rows
 
 
-def _attn_cost(B, Sq, Sk, H, G, D, causal, itemsize) -> tuple[float, float]:
-    """Bytes (q, k, v read once, o written once) and FLOPs (4·D per
-    query-key pair the mask keeps: the causal triangle, top-left
-    aligned) of one attention forward."""
-    nbytes = itemsize * D * (2 * B * Sq * H + 2 * B * Sk * G)
-    n = min(Sq, Sk)
-    pairs = n * (n + 1) // 2 + max(Sq - Sk, 0) * Sk if causal else Sq * Sk
-    return nbytes, 4 * D * B * H * pairs
-
-
 def _b6_check(phase, tag, q, k, v, causal, rtol, atol=None, card="") -> dict:
     """B6 against its plain version; in bf16 also the worst row and the
     max abs error against the plain version on float32 inputs."""
@@ -2429,8 +2427,7 @@ def _b6_row(phase, name, q, k, v, launches, card="", causal=True) -> dict:
     lib_ms = _time_ms(
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True), 20
     )
-    cost = _attn_cost(Bb, S, Sk, H, G, D, causal, q.element_size())
-    bound, by = _bound_ms(*cost, rate=BF16_FLOPS)
+    bound, by = _kernel_bound("flash_fwd", B=Bb, Sq=S, Sk=Sk, H=H, G=G, D=D, causal=causal, dtype=q.dtype)
     return {
         "name": name,
         "route": "cuda",
@@ -3181,12 +3178,9 @@ def _conv_row(tag, x, w, launches, rtol, reps=20, want_route=None) -> dict:
     want = conv_ref.conv3d_ref(x.float(), w.float())
     rel = _rel_l2(got, want)
     mx = float(torch.max(torch.abs(got - want)))
-    cost = ((x.numel() + w.numel() + got.numel()) * x.element_size(),
-            conv_kernel.flops(tuple(x.shape), tuple(w.shape)))
-    if x.dtype == torch.bfloat16:
-        (bound, by), bound_fma = _bound_ms(*cost, rate=BF16_FLOPS), None
-    else:
-        (bound, by), bound_fma = _bound_ms(*cost, rate=TF32_FLOPS / 3), _bound_ms(*cost)[0]
+    shape = dict(x_shape=tuple(x.shape), w_shape=tuple(w.shape), dtype=x.dtype)
+    bound, by = _kernel_bound("conv3d", **shape)
+    bound_fma = None if x.dtype == torch.bfloat16 else _kernel_bound("conv3d", roofline.PEAK_FLOPS_F32, **shape)[0]
     print(
         f"classify: B4 {tag} x {tuple(x.shape)} w {tuple(w.shape)} {x.dtype} route {route} vs plain: "
         f"rel L2 {rel:.3g}, max abs {mx:.3g}; bound {bound:.4f} ms ({by})"
@@ -3463,8 +3457,7 @@ def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
         ms = _time_ms(lambda: stmul_kernel.spectral_mac_cuda(xh, gr, 2), 20)
         plain_ms = _time_ms(lambda: stmul_ref.spectral_mac_ref(xh, gr, 2), 3)
         lib_ms = _time_ms(lambda: torch.einsum("bcf,ocf->bof", xh, gr), 20)
-    bound, by = _bound_ms((xh.numel() + gr.numel() + CLASSIFY_BATCH * 9 * F) * 8,
-                          8 * CLASSIFY_BATCH * 9 * F)
+    bound, by = _kernel_bound("spectral_mac", B=CLASSIFY_BATCH, O=9, C=1, F=F)
     rows.append({
         "name": "spectral_mac[classify]",
         "route": "cuda",
@@ -3827,8 +3820,8 @@ def _b2_shard_row(kernel, ref, tag: str, cap: dict, launches: int) -> dict:
         ms = _time_ms(lambda: kernel.spectral_mac_grouped_cuda(x, pre, pim, offs, n), 20)
         plain_ms = _time_ms(lambda: ref.spectral_mac_grouped_ref(x, pre, pim, offs, n), 3)
         lib_ms = _time_ms(lambda: torch.einsum("bcf,ocf->bof", x, tile), 20)
-    bound, by = _bound_ms(B * C * F * 8 + 2 * n * C * F * pre.element_size() + B * n * F * 8,
-                          8 * B * n * C * F)
+    bound, by = _kernel_bound("spectral_mac_grouped", B=int(B), C=int(C), F=int(F), o_start=tuple(offs),
+                              n_out=int(n), itemsize=pre.element_size())
     print(f"mesh: B2 at the {tag} ({B} rows x {n}-row tile, zero offsets{', tile all zero' if cap['zero_tile'] else ''}) "
           f"bitwise its plain version, {ms:.4f} ms (bound {bound:.4f} {by}, plain {plain_ms:.3f}, einsum "
           f"{lib_ms:.4f})")
@@ -4399,6 +4392,137 @@ def _restart_check(seed, card) -> dict:
     return res
 
 
+ROOFLINE_REPS = 5  # timed steps of each counted step, after one warm-up
+# the three steps the roofline phase counts: (tag, arch, mode) at LM_TRAIN_SHAPE
+ROOFLINE_STEPS = (("qwen2-1.5b train", "qwen2-1.5b", "train"), ("mamba2-370m train", "mamba2-370m", "train"),
+                  ("qwen2-1.5b prefill", "qwen2-1.5b", "prefill"))
+
+
+def _roofline_args(cfg, mode, seed, device):
+    """One step of ``mode`` at ``LM_TRAIN_SHAPE`` and its arguments on
+    ``device``: the ``lm_train`` recipe's step (``make_step_fn``, AdamW with
+    float32 moments) on its token stream, or a prefill into a cache of the
+    prompt's length.  On ``meta`` the model is ``specs.abstract_model``'s
+    and the batch empty tensors of the real batch's shapes and dtypes."""
+    from repro_torch.data import tokens as token_data
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_lib
+    from repro_torch.models import model_api
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    Bb, S = LM_TRAIN_SHAPE
+    if device == "meta":
+        model = specs.abstract_model(cfg)
+    else:
+        model = model_api.get_model(cfg).init_params(cfg, torch.Generator(device).manual_seed(seed), device=device)
+    ds = token_data.TokenStreamConfig(vocab=cfg.vocab, seq_len=S, seed=seed)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in token_data.batch_at_step(ds, 0, Bb).items()}
+    if mode == "prefill":
+        return (lambda m, b: m.prefill(b["tokens"], max_len=S)), (model, batch)
+    model.requires_grad_(True)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    tc = train_lib.TrainConfig(steps=LM_TRAIN_STEPS, batch=Bb, seq=S, seed=seed)
+    opt = adamw_init(opt_cfg, train_lib.trainable(model))
+    return train_lib.make_step_fn(cfg, opt_cfg, tc), (model, opt, {}, batch, 0)
+
+
+def _count(step, args, mode):
+    grad = torch.enable_grad() if mode == "train" else torch.no_grad()
+    with grad, op_analysis.OpCounter() as counter:
+        step(*args)
+    return counter.analysis
+
+
+def _roofline_step(tag, arch, mode, seed, card) -> dict:
+    """Count one step on ``meta`` and around one real step on the card,
+    gated equal in FLOPs, bytes and per op name; then time the step with
+    no counter (median of ``ROOFLINE_REPS`` after a warm-up) beside the
+    roofline of the count."""
+    from repro_torch import configs
+    from repro_torch.models import model_api
+
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    meta = _count(*_roofline_args(cfg, mode, seed, "meta"), mode)
+    meta_s = time.perf_counter() - t0
+    step, args = _roofline_args(cfg, mode, seed, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    real = _count(step, args, mode)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    keys = ("flops", "hbm_bytes", "op_flops", "op_bytes", "op_counts", "flops_by_class")
+    differ = [k for k in keys if getattr(meta, k) != getattr(real, k)]
+    if differ:
+        ops = sorted(set(meta.op_bytes) | set(real.op_bytes))
+        diff = {o: (meta.op_counts.get(o), real.op_counts.get(o), meta.op_bytes.get(o), real.op_bytes.get(o))
+                for o in ops if meta.op_bytes.get(o) != real.op_bytes.get(o) or meta.op_counts.get(o) != real.op_counts.get(o)}
+        raise AssertionError(f"roofline: {tag} counts differ on meta and the card in {differ}: {diff}")
+
+    grad = torch.enable_grad() if mode == "train" else torch.no_grad()
+    with grad:
+        step(*args)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(ROOFLINE_REPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+    step_peak = torch.cuda.max_memory_allocated() - base
+    med = float(np.median(times))
+    Bb, S = LM_TRAIN_SHAPE
+    model_flops = model_api.model_flops_per_token(cfg, train=(mode == "train")) * Bb * S
+    rl = roofline.analyze(real, 1, model_flops)
+    bound_ms = max(rl.compute_s, rl.memory_s, rl.collective_s) * 1e3
+    buckets = {k: {"gflop": real.op_flops[k] / 1e9, "gb": real.op_bytes[k] / 1e9,
+                   "ms_at_hbm": real.op_bytes[k] / roofline.HBM_BW * 1e3}
+               for k in real.op_bytes if k.endswith("(plain)") or k in ("flash_fwd", "ssd")}
+    top = sorted(real.op_bytes.items(), key=lambda kv: -kv[1])[:6]
+    rec = {
+        "arch": arch, "mode": mode, "batch": [Bb, S], "median_ms": med, "ms": times,
+        "bound_ms": bound_ms, "bottleneck": rl.bottleneck, "compute_ms": rl.compute_s * 1e3,
+        "memory_ms": rl.memory_s * 1e3, "share_of_bound": bound_ms / med, "roofline": rl.to_json(),
+        "model_flop_share": model_flops / (med * 1e-3) / roofline.PEAK_FLOPS_BF16,
+        "temp_bytes_counted": real.peak_live_bytes, "temp_bytes_meta": meta.peak_live_bytes,
+        "step_peak_bytes": step_peak, "temp_over_peak": real.peak_live_bytes / step_peak,
+        "ops": sum(real.op_counts.values()), "count_s_meta": meta_s, "count_s_card": card_s,
+        "buckets": buckets, "top_bytes": dict(top),
+    }
+    print(f"roofline: {tag} {Bb}x{S}: meta and card counts equal ({rec['ops']} ops, {rl.flops / 1e12:.3f} "
+          f"TFLOP, {rl.hbm_bytes / 1e9:.2f} GB; counted in {meta_s:.1f} s on meta, {card_s:.1f} s on the "
+          f"card) [{card}]")
+    print(f"roofline: {tag} measured {med:.2f} ms (median of {ROOFLINE_REPS}), bound {bound_ms:.2f} ms "
+          f"({rl.bottleneck}; compute {rl.compute_s * 1e3:.2f}, memory {rl.memory_s * 1e3:.2f}), bound / "
+          f"measured {rec['share_of_bound']:.2%}; useful FLOPs ratio {rl.useful_flops_ratio:.3f}, "
+          f"model-FLOP share {rec['model_flop_share']:.2%}; FLOPs by class "
+          + ", ".join(f"{c} {f / 1e12:.3f} T" for c, f in sorted(rl.flops_by_class.items())) + f" [{card}]")
+    print(f"roofline: {tag} temp {real.peak_live_bytes / 2**30:.2f} GiB counted (meta "
+          f"{meta.peak_live_bytes / 2**30:.2f}) vs max_memory_allocated - arguments {step_peak / 2**30:.2f} "
+          f"GiB: ratio {rec['temp_over_peak']:.3f}; " + "; ".join(
+              f"{k} {v['gflop']:.1f} GFLOP {v['gb']:.2f} GB ({v['ms_at_hbm']:.2f} ms at HBM)"
+              for k, v in buckets.items()) + f" [{card}]")
+    print(f"roofline: {tag} most bytes: " + ", ".join(f"{k} {v / 1e9:.2f} GB" for k, v in top) + f" [{card}]")
+    del step, args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_roofline(seed: int, card: str) -> dict:
+    """The counter and the roofline on the card: ``ROOFLINE_STEPS`` each
+    counted on ``meta`` and around a real step (gated equal), timed
+    uncounted, beside their three-term roofline."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    report = {tag: _roofline_step(tag, arch, mode, seed, card) for tag, arch, mode in ROOFLINE_STEPS}
+    report["seconds"] = time.perf_counter() - t0
+    print(f"roofline: phase {report['seconds']:.1f} s [{card}]")
+    return report
+
+
 def phase_lm_train(seed: int, card: str) -> tuple[dict, list[dict]]:
     """LM training on the card through ``launch.train.train_loop``: each of
     ``LM_TRAIN_MODELS`` at its published config, then the kernel routes'
@@ -4478,6 +4602,12 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    phase_s = {}
+
+    def mark(name: str) -> None:  # seconds since the last mark
+        phase_s[name] = time.perf_counter() - t_start - sum(phase_s.values())
+
     report = {"build": phase_build({
         "stmul": kernel, "ssd": ssd_kernel, "flash": flash_kernel, "conv3d": conv_kernel,
     })}
@@ -4485,35 +4615,55 @@ def main() -> int:
     report["build"]["ssd_sass"] = check_ssd_build(ssd_kernel, report["build"]["ssd"]["path"])
     report["build"]["conv3d_sass"] = check_conv3d_build(
         report["build"]["conv3d"]["path"], report["build"]["conv3d"]["warnings"])
+    mark("build")
     report["serve"] = phase_serve(kernel, args.seed)
+    mark("serve")
     report["sched"] = phase_sched(kernel, args.seed, report["serve"]["modes"]["pooled"]["frames_per_s"])
+    mark("sched")
     rows = phase_kernels(kernel, ref, args.seed, report["serve"]["launches"])
+    mark("kernels")
     report["lm"], ssd_rows = phase_lm(args.seed)
     rows += ssd_rows
+    mark("lm")
     report["lm_dense"], flash_rows = phase_lm_dense(args.seed)
     rows += flash_rows
+    mark("lm_dense")
     report["classify"], classify_rows = phase_classify(args.seed, kernel)
     rows += classify_rows
+    mark("classify")
     report["train"], train_rows = phase_train(args.seed, kernel)
     rows += train_rows
+    mark("train")
     # last, so the phases before them run in the process state they ran
     # in before these two existed
     report["replica"] = phase_replica(kernel, args.seed)
+    mark("replica")
     report["ckpt"] = phase_ckpt(args.seed)
+    mark("ckpt")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     report["mesh"], mesh_rows = phase_mesh(kernel, ref, args.seed, card)
     rows += mesh_rows
+    mark("mesh")
     report["lm_zamba"], zamba_rows = phase_lm_zamba(args.seed, card)
     rows += zamba_rows
+    mark("lm_zamba")
     report["lm_moe"], moe_rows = phase_lm_moe(args.seed, card)
     rows += moe_rows
+    mark("lm_moe")
     report["lm_mm"], mm_rows = phase_lm_mm(args.seed, card)
     rows += mm_rows
+    mark("lm_mm")
+    report["roofline"] = phase_roofline(args.seed, card)
+    mark("roofline")
     report["lm_train"], train_lm_rows = phase_lm_train(args.seed, card)
     rows += train_lm_rows
+    mark("lm_train")
+    report["phase_s"] = phase_s
+    print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
+          + f"; all {sum(phase_s.values()):.1f} s [{card}]")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(

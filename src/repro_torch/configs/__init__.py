@@ -39,3 +39,19 @@ def get_config(name: str, **overrides):
 def get_smoke_config(name: str, **overrides):
     cfg = get_module(name).smoke_config()
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def arch_names() -> list[str]:
+    """The LM architectures' canonical ids (the reference's ten)."""
+    return [
+        "granite-8b",
+        "qwen2-1.5b",
+        "llama3-405b",
+        "nemotron-4-15b",
+        "mamba2-370m",
+        "zamba2-2.7b",
+        "arctic-480b",
+        "deepseek-v2-lite-16b",
+        "whisper-tiny",
+        "internvl2-2b",
+    ]

@@ -13,6 +13,12 @@ its backward recomputes :func:`ref.ssd_chunked_ref` under autograd and
 returns its gradients for x, dt, A, B and C.  There is no backward
 kernel (the reference's Pallas SSD has none either), so a Mamba-2 loss
 gets the same gradients by either route.
+
+A ``meta`` tensor takes a third route: outputs of the right shapes and
+dtypes on ``meta`` and no arithmetic (the dry run's).  Under
+``launch.op_analysis.OpCounter`` the kernel route's forward counts as
+one op, ``ssd``, by its own formula on every device, and its backward's
+ops under the bucket ``ssd_bwd(plain)``.
 """
 
 from __future__ import annotations
@@ -22,18 +28,32 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import kernel as _kernel
 from repro_torch.kernels.ssd import ref as _ref
+from repro_torch.launch import op_analysis
 
 Tensor = torch.Tensor
 
 IMPLS = ("kernel", "chunked")
 
 
-def _on_cuda(t: Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"ssd has no kernel for device {t.device}")
+def _shape(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, chunk: int) -> dict:
+    Bb, L, H, P = x.shape
+    return dict(Bb=Bb, L=L, H=H, G=B.shape[2], P=P, N=B.shape[3], chunk=chunk)
+
+
+@op_analysis.counted_kernel("ssd", _shape)
+def _forward(x: Tensor, dt: Tensor, A: Tensor, B: Tensor, C: Tensor, chunk: int):
+    """The scan of inputs padded to a chunk multiple: the kernel on a CUDA
+    tensor, the plain version on a CPU one, shapes alone on ``meta``."""
+    if x.device.type == "cuda":
+        return _kernel.ssd_chunked_cuda(
+            x.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(), C.contiguous(), chunk,
+        )
+    if x.device.type == "cpu":
+        return _ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    if x.device.type == "meta":
+        Bb, _, H, P = x.shape
+        return x.new_empty(x.shape), x.new_empty((Bb, H, P, B.shape[3]))
+    raise ValueError(f"ssd has no kernel for device {x.device}")
 
 
 def pad_to_chunk(x: Tensor, dt: Tensor, B: Tensor, C: Tensor, chunk: int):
@@ -53,16 +73,11 @@ class _SSD(torch.autograd.Function):
     def forward(ctx, x, dt, A, B, C, chunk):
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.chunk = chunk
-        if _on_cuda(x):
-            return _kernel.ssd_chunked_cuda(
-                x.contiguous(), dt.contiguous(), A.contiguous(), B.contiguous(),
-                C.contiguous(), chunk,
-            )
-        return _ref.ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+        return _forward(x, dt, A, B, C, chunk)
 
     @staticmethod
     def backward(ctx, gy, gS):
-        with torch.enable_grad():
+        with torch.enable_grad(), op_analysis.bucket("ssd_bwd(plain)"):
             leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             y, S = _ref.ssd_chunked_ref(*leaves, chunk=ctx.chunk)
             grads = torch.autograd.grad((y, S), leaves, (gy, gS))

@@ -4,9 +4,13 @@ Each function keeps the reference's signature on complex tensors with
 arbitrary trailing frequency axes, flattens them, and routes by the
 tensor's device: a CUDA tensor launches the hand-written kernel of
 ``kernel.py`` (or raises), a CPU tensor runs its plain version from
-``ref.py``.  There is no fallback from one to the other.  The kernels
-have no backward: on the card, a call in grad mode whose inputs require
-a gradient raises (a CPU call's plain version is differentiable).
+``ref.py``, and a ``meta`` tensor gets outputs of the right shapes and
+dtypes on ``meta`` and no arithmetic (the dry run's route).  There is
+no fallback from one to the other.  The kernels have no backward: on
+the card and on ``meta``, a call in grad mode whose inputs require a
+gradient raises (a CPU call's plain version is differentiable).  Under
+``launch.op_analysis.OpCounter`` each kernel call counts as one op by
+its own formula on every route.
 
 The TPU kernels needed a real/imag plane split and a ``yr + 1j*yi``
 recombination around every launch; the CUDA kernels read and write
@@ -22,6 +26,7 @@ import torch
 
 from repro_torch.kernels.stmul import kernel as _kernel
 from repro_torch.kernels.stmul import ref as _ref
+from repro_torch.launch import op_analysis
 
 Tensor = torch.Tensor
 
@@ -30,22 +35,62 @@ _FFT_AXES = (-3, -2, -1)
 
 def _on_cuda(*inputs: Tensor) -> bool:
     """Whether the call launches its kernel: True when the first input is
-    a CUDA tensor, False for a CPU one.  The kernels have no backward (nor
-    have the reference's), so a CUDA call in grad mode on inputs that
-    require a gradient raises instead of returning a result cut from the
-    graph."""
+    a CUDA tensor, False for a CPU or ``meta`` one.  The kernels have no
+    backward (nor have the reference's), so a CUDA or ``meta`` call in
+    grad mode on inputs that require a gradient raises instead of
+    returning a result cut from the graph."""
     t = inputs[0]
-    if t.device.type == "cuda":
+    if t.device.type in ("cuda", "meta"):
         if torch.is_grad_enabled() and any(i.requires_grad for i in inputs):
             raise ValueError(
                 "the stmul kernels have no backward: an input requires a gradient; "
                 "call them under torch.no_grad() (the STHC routes are inference-only "
                 "on the card)"
             )
-        return True
+        return t.device.type == "cuda"
     if t.device.type == "cpu":
         return False
     raise ValueError(f"stmul has no kernel for device {t.device}")
+
+
+@op_analysis.counted_kernel(
+    "spectral_mac", lambda xf, gf, version: dict(B=xf.shape[0], O=gf.shape[0], C=xf.shape[1], F=xf.shape[2])
+)
+def _mac(xf: Tensor, gf: Tensor, version: int) -> Tensor:
+    if _on_cuda(xf, gf):
+        return _kernel.spectral_mac_cuda(xf.contiguous(), gf.contiguous(), version)
+    if xf.device.type == "meta":
+        return xf.new_empty((xf.shape[0], gf.shape[0], xf.shape[2]))
+    return _ref.spectral_mac_ref(xf, gf, version)
+
+
+def _grouped_shape(xf, pr, pi, o_start, n_out) -> dict:
+    B, C, F = xf.shape
+    return dict(B=B, C=C, F=F, o_start=tuple(o_start), n_out=int(n_out), itemsize=pr.element_size())
+
+
+@op_analysis.counted_kernel("spectral_mac_grouped", _grouped_shape)
+def _mac_grouped(xf: Tensor, pr: Tensor, pi: Tensor, o_start: Sequence[int], n_out: int) -> Tensor:
+    if _on_cuda(xf, pr, pi):
+        return _kernel.spectral_mac_grouped_cuda(
+            xf.contiguous(), pr.contiguous(), pi.contiguous(), o_start, n_out
+        )
+    if xf.device.type == "meta":
+        return xf.new_empty((xf.shape[0], int(n_out), xf.shape[2]))
+    return _ref.spectral_mac_grouped_ref(xf, pr, pi, o_start, n_out)
+
+
+@op_analysis.counted_kernel("topk_readout", lambda flat, gidx, k: dict(R=flat.shape[0], L=flat.shape[1], k=k))
+def _topk(flat: Tensor, gidx: Tensor, k: int) -> tuple[Tensor, Tensor]:
+    if _on_cuda(flat):
+        return _kernel.topk_readout_cuda(
+            flat.to(torch.float32).contiguous(), gidx.to(torch.int32).contiguous(), k
+        )
+    if flat.device.type == "meta":
+        R = flat.shape[0]
+        return (torch.empty((R, k), dtype=torch.float32, device="meta"),
+                torch.empty((R, k), dtype=torch.int32, device="meta"))
+    return _ref.topk_readout_ref(flat, gidx, k)
 
 
 def spectral_mac(xhat: Tensor, grating: Tensor, *, version: int = 2) -> Tensor:
@@ -62,11 +107,7 @@ def spectral_mac(xhat: Tensor, grating: Tensor, *, version: int = 2) -> Tensor:
     O = grating.shape[0]
     xf = xhat.reshape(B, C, -1)
     gf = grating.reshape(O, C, -1)
-    if _on_cuda(xf, gf):
-        y = _kernel.spectral_mac_cuda(xf.contiguous(), gf.contiguous(), version)
-    else:
-        y = _ref.spectral_mac_ref(xf, gf, version)
-    return y.reshape((B, O) + fshape)
+    return _mac(xf, gf, version).reshape((B, O) + fshape)
 
 
 def spectral_mac_grouped(
@@ -94,13 +135,7 @@ def spectral_mac_grouped(
     xf = xhat.reshape(B, C, -1)
     pr = pool_re.reshape(so, C, -1)
     pi = pool_im.reshape(so, C, -1)
-    if _on_cuda(xf, pr, pi):
-        y = _kernel.spectral_mac_grouped_cuda(
-            xf.contiguous(), pr.contiguous(), pi.contiguous(), o_start, n_out
-        )
-    else:
-        y = _ref.spectral_mac_grouped_ref(xf, pr, pi, o_start, n_out)
-    return y.reshape((B, int(n_out)) + fshape)
+    return _mac_grouped(xf, pr, pi, o_start, n_out).reshape((B, int(n_out)) + fshape)
 
 
 def query_grating_pooled(
@@ -175,14 +210,7 @@ def topk_readout(
         return _ref.topk_select(vals, gidx.expand(vals.shape), k)
     lead = tuple(vals.shape[:-1])
     flat = vals.reshape(-1, vals.shape[-1])
-    if _on_cuda(flat):
-        s, ix = _kernel.topk_readout_cuda(
-            flat.to(torch.float32).contiguous(),
-            gidx.to(torch.int32).contiguous(),
-            k,
-        )
-    else:
-        s, ix = _ref.topk_readout_ref(flat, gidx, k)
+    s, ix = _topk(flat, gidx, k)
     return s.reshape(lead + (k,)), ix.reshape(lead + (k,))
 
 

@@ -144,13 +144,19 @@ def make_train_step(
 
 def make_serve_step(cfg, shape: str) -> Callable:
     """Prefill: (model, batch) → (logits, cache).
-    Decode:  (model, cache, tokens) → (logits, cache)."""
+    Decode:  (model, cache, tokens) → (logits, cache).
+
+    The prefill's cache holds ``seq_len`` positions; the VLM's ``max_len``
+    counts its patches, so its cache holds ``n_patches + seq_len`` (the
+    reference passes ``seq_len`` and clamps the cache writes past it)."""
     info = SHAPES[shape]
 
     if info["mode"] == "prefill":
 
         def prefill_step(model, batch):
-            if cfg.family in ("audio", "vlm"):
+            if cfg.family == "vlm":
+                return model.prefill(batch, max_len=cfg.n_patches + info["seq_len"])
+            if cfg.family == "audio":
                 return model.prefill(batch, max_len=info["seq_len"])
             return model.prefill(batch["tokens"], max_len=info["seq_len"])
 

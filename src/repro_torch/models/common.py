@@ -199,8 +199,9 @@ def _cache_dot(a: Tensor, cache: Tensor, transpose: bool) -> Tensor:
 
 def _bf16_gemm_route(q: Tensor, k: Tensor, v: Tensor) -> bool:
     """Decode attention's products run as bf16 GEMMs: a bf16 cache on
-    the card (the CPU has no ``bmm`` with ``out_dtype``)."""
-    return k.device.type == "cuda" and q.dtype == k.dtype == v.dtype == torch.bfloat16
+    the card, or on ``meta``, so that a dry run counts what the card runs
+    (the CPU has no ``bmm`` with ``out_dtype``)."""
+    return k.device.type in ("cuda", "meta") and q.dtype == k.dtype == v.dtype == torch.bfloat16
 
 
 def decode_attention(

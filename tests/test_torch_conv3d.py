@@ -30,6 +30,7 @@ by ~3e-4.
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -167,8 +168,11 @@ def test_kernel_refuses_cpu_tensors_and_ops_refuses_other_devices():
     w = torch.zeros(2, 1, 3, 3, 2)
     with pytest.raises(ValueError, match="CUDA"):
         t_kernel.conv3d_cuda(x, w)
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        t_ops.conv3d(x.to("meta"), w.to("meta"))
+    # meta is the dry run's route (shapes alone); any other device raises
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        t_ops._forward(SimpleNamespace(device=torch.device("xpu")), w)
+    y = t_ops.conv3d(x.to("meta"), w.to("meta"))
+    assert y.device.type == "meta" and y.shape == (1, 2, 4, 4, 3) and y.dtype == x.dtype
     assert t_kernel.conv3d_cuda.launches == 0
 
 
