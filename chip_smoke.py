@@ -331,7 +331,7 @@ Phases, each reported on lines of its own:
              full remat, the SSD on B5) at their published configs, 8
              steps of 4 x 2048 tokens from the token stream, AdamW
              (float32 moments), saves off in the timed steps and one
-             final save.  Each step timed between two synchronisations:
+             final save, kept for ``reshard``.  Each step timed between two synchronisations:
              median of steps 2-8, tokens/s, model-FLOP share (6 x
              params a token over 989 TFLOP/s), peak memory, the loss of
              steps 0 and 7 (step 0 finite and within 2.5 of ln V, gated;
@@ -359,8 +359,26 @@ Phases, each reported on lines of its own:
              where an op has no deterministic CUDA version it is named
              and the runs are held within 1e-6); save and restore
              seconds.  Every line ends in the card's name and power
-             limit.  Runs last, so that no earlier phase runs in a
-             changed process state.
+             limit.  Runs after every other phase but ``reshard``, so
+             that no earlier phase runs in a changed process state.
+17. reshard — the elastic re-mesh of training state: ``lm_train``'s
+             final checkpoints of qwen2-1.5b and mamba2-370m (bf16
+             params, float32 AdamW m and v, the step) restored by
+             ``checkpoint.restore_resharded`` onto logical meshes of
+             ``cuda:0``: (2, 2) and (1, 4) for mamba2-370m, (2, 2) for
+             qwen2-1.5b (its (1, 4) restore is cut for time: the npz
+             read runs at ~0.4 GB/s), each leaf a ``ShardedTensor`` under
+             ``tree_shardings`` of ``specs.params_logical_axes`` and the
+             training rules.  Gated: every leaf's ``full()`` bitwise the
+             unsharded ``restore`` (moved to the card); each leaf one
+             shard a mesh position, as many distinct tiles and of the
+             shape its spec gives; the forward loss at 4 x 2048 from the
+             gathered parameters bitwise the unsharded state's, B6 (or
+             B5) launched once a layer and the other kernel never, the
+             counts zeroed before the restore.  Restore seconds, the
+             shards' device bytes and the peak host RSS (sampled from
+             ``/proc/self/statm``); every line ends in the card's name and
+             power limit.  The checkpoints are removed after it.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -377,6 +395,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -927,18 +946,43 @@ def _b5_passes(prof: dict, calls: int) -> dict:
     }
 
 
+def _device_events(prof) -> list[tuple[str, int, int, bool]]:
+    """(name, start ns, duration ns, is a ``record_function`` range) of
+    each device event that a finished profile holds, step markers
+    included, named as ``prof.events()`` names them.  Read from the profiler's raw
+    results: ``prof.events()`` builds a tree of every host op first, at
+    ~70 us an event on the host, which is tens of seconds for a profiled
+    generate."""
+    from torch.autograd import DeviceType
+
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is None:
+        return [(e.name, int(e.time_range.start * 1e3), int(e.time_range.elapsed_us() * 1e3),
+                 getattr(e, "is_user_annotation", False))
+                for e in prof.events() if e.device_type == DeviceType.CUDA]
+    try:
+        from torch.autograd.profiler_util import _rewrite_name
+    except ImportError:
+        def _rewrite_name(name, with_wildcard=False):
+            return name
+    return [
+        (_rewrite_name(e.name(), with_wildcard=True), e.start_ns(), e.duration_ns(),
+         e.is_user_annotation() if hasattr(e, "is_user_annotation") else False)
+        for e in raw.events()
+        if e.device_type() == DeviceType.CUDA
+        and not (hasattr(e, "is_hidden_event") and e.is_hidden_event())
+    ]
+
+
 def _device_time(prof, wall_ms: float, calls: int) -> dict:
     """Per call: the device time of the kernels a profile holds, by name,
     their sum (busy time) and its share of ``wall_ms``.  The step markers
     a profiler schedule adds and the ranges ``record_function`` marks are
     not kernels."""
-    from torch.autograd import DeviceType
-
     by_name: dict[str, float] = {}
-    for e in prof.events():
-        if (e.device_type == DeviceType.CUDA and not e.name.startswith("ProfilerStep")
-                and not getattr(e, "is_user_annotation", False)):
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    for name, _, dur_ns, annotation in _device_events(prof):
+        if not name.startswith("ProfilerStep") and not annotation:
+            by_name[name] = by_name.get(name, 0.0) + dur_ns / 1e6 / calls
     busy_ms = sum(by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     # the eight longest, then every kernel of this repository's own
@@ -4039,13 +4083,12 @@ def _grad_check(tag, cfg, model, batch, card) -> dict:
     return {"parameters": len(names)}
 
 
-def _train_full(name, seed, card, kernels) -> tuple[dict, list, dict]:
+def _train_full(name, seed, card, kernels, ckpt) -> tuple[dict, list, dict]:
     """``train_loop`` on a full-size config for ``LM_TRAIN_STEPS`` steps at
     ``LM_TRAIN_SHAPE`` on the card (saves off in the timed steps, one final
-    save); returns the report, the per-step records and the last step's
-    model and a batch for the checks after it."""
-    import tempfile
-
+    save into ``ckpt``, which the ``reshard`` phase restores); returns the
+    report, the per-step records and the last step's model and a batch for
+    the checks after it."""
     from repro_torch import configs
     from repro_torch.data import tokens as token_data
     from repro_torch.launch import train as train_lib
@@ -4059,15 +4102,11 @@ def _train_full(name, seed, card, kernels) -> tuple[dict, list, dict]:
     steps, logs = [], []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    ckpt = tempfile.mkdtemp(prefix="lm_train_")
-    try:
-        t0 = time.perf_counter()
-        with _recording_train_steps(kernels, steps):
-            out = train_lib.train_loop(cfg, tc, ckpt, opt_cfg=AdamWConfig(lr=1e-3),
-                                       log=logs.append, device="cuda")
-        loop_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    with _recording_train_steps(kernels, steps):
+        out = train_lib.train_loop(cfg, tc, ckpt, opt_cfg=AdamWConfig(lr=1e-3),
+                                   log=logs.append, device="cuda")
+    loop_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     totals = {n: k.launches for n, k in kernels.items()}
     last = steps[-1]
@@ -4131,21 +4170,67 @@ STEP_PARTS = {
 }
 
 
+def _device_ms_under(prof, names) -> dict[str, float] | None:
+    """Device ms of the kernels launched inside each host op of
+    ``names``, its children's included: the op's ``device_time_total`` in
+    ``prof.key_averages()``, summed over its calls, read from the raw
+    events (a kernel belongs to the host op its launch is linked to, and
+    that op to every op of the same thread whose span holds its start).
+    None where the profiler's raw results do not link kernels to ops."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is None:
+        return None
+    events = raw.events()
+    if events and not hasattr(events[0], "linked_correlation_id"):
+        return None
+    names = set(names)
+    launched_at, spans = {}, {n: {} for n in names}
+    for e in events:
+        if e.device_type() == DeviceType.CPU:
+            launched_at[e.correlation_id()] = (e.start_thread_id(), e.start_ns())
+            if e.name() in names:
+                spans[e.name()].setdefault(e.start_thread_id(), []).append((e.start_ns(), e.end_ns()))
+    for by_thread in spans.values():
+        for ranges in by_thread.values():
+            ranges.sort()
+    out = dict.fromkeys(names, 0.0)
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_user_annotation", lambda: False)():
+            continue
+        at = launched_at.get(e.linked_correlation_id())
+        if at is None:
+            continue
+        thread, t = at
+        for n in names:
+            ranges = spans[n].get(thread)
+            if not ranges:
+                continue
+            i = bisect.bisect_right(ranges, (t, float("inf"))) - 1
+            # ranges of one name may nest (a recursive op): count a kernel once
+            while i >= 0:
+                if ranges[i][0] <= t <= ranges[i][1]:
+                    out[n] += e.duration_ns() / 1e6
+                    break
+                i -= 1
+    return out
+
+
 def _kernels_in_range(prof, label: str):
     """Device ms of the kernels that start inside the device-side range
     of ``record_function(label)``; None where the trace has no such range."""
-    from torch.autograd import DeviceType
-
-    events = list(prof.events())
-    spans = [e.time_range for e in events if e.name == label and e.device_type == DeviceType.CUDA]
+    events = _device_events(prof)
+    spans = [(start, start + dur) for name, start, dur, _ in events if name == label]
     if not spans:
         return None
-    lo, hi = spans[0].start, spans[0].end
+    lo, hi = spans[0]
     return sum(
-        e.time_range.elapsed_us() for e in events
-        if e.device_type == DeviceType.CUDA and e.name != label
-        and not getattr(e, "is_user_annotation", False) and lo <= e.time_range.start <= hi
-    ) / 1e3
+        dur for name, start, dur, annotation in events
+        if name != label and not annotation and lo <= start <= hi
+    ) / 1e6
 
 
 def _profiled_step(tag, cfg, model, opt, batch, card) -> dict:
@@ -4184,7 +4269,9 @@ def _profiled_step(tag, cfg, model, opt, batch, card) -> dict:
         train_lib.adamw_lib.adamw_update = orig
     prof = _device_time(tp, wall_ms, 1)
     kinds = prof["by_kind_ms"] = _by_kind(prof["by_name_ms"])
-    rows = {e.key: e.device_time_total / 1e3 for e in tp.key_averages()}
+    rows = _device_ms_under(tp, {k for keys in STEP_PARTS.values() for k in keys})
+    if rows is None:
+        rows = {e.key: e.device_time_total / 1e3 for e in tp.key_averages()}
     parts = {part: sum(rows.get(k, 0.0) for k in keys) for part, keys in STEP_PARTS.items()}
     parts["AdamW update"] = _kernels_in_range(tp, "adamw_update")
     prof["parts_device_ms"] = parts
@@ -4523,13 +4610,14 @@ def phase_roofline(seed: int, card: str) -> dict:
     return report
 
 
-def phase_lm_train(seed: int, card: str) -> tuple[dict, list[dict]]:
+def phase_lm_train(seed: int, card: str, ckpt_root: str) -> tuple[dict, list[dict]]:
     """LM training on the card through ``launch.train.train_loop``: each of
-    ``LM_TRAIN_MODELS`` at its published config, then the kernel routes'
-    gradients against the plain routes' on every family's smoke config
-    and one full-width qwen2-1.5b layer, B5 and B6 relaunched bitwise, and
-    the restart contract.  Returns the report and the B5 / B6 rows at the
-    training shapes."""
+    ``LM_TRAIN_MODELS`` at its published config (its final checkpoint left
+    in ``ckpt_root/<name>``), then the kernel routes' gradients against
+    the plain routes' on every family's smoke config and one full-width
+    qwen2-1.5b layer, B5 and B6 relaunched bitwise, and the restart
+    contract.  Returns the report and the B5 / B6 rows at the training
+    shapes."""
     from repro_torch import configs
     from repro_torch.kernels.flash import kernel as flash_kernel
     from repro_torch.kernels.ssd import kernel as ssd_kernel
@@ -4542,7 +4630,8 @@ def phase_lm_train(seed: int, card: str) -> tuple[dict, list[dict]]:
         own = "flash_fwd_cuda" if name.startswith("qwen2") else "ssd_chunked_cuda"
         flash_kernel.reset_launches()
         ssd_kernel.reset_launches()
-        rec, (cfg, model, opt, batch) = _train_full(name, seed, card, {own: kernels[own]})
+        rec, (cfg, model, opt, batch) = _train_full(name, seed, card, {own: kernels[own]},
+                                                    os.path.join(ckpt_root, name))
         other = [n for n in kernels if n != own]
         if any(kernels[n].launches for n in other):  # the main path of this model launches only its own
             raise AssertionError(f"{name} launched {other}")
@@ -4585,6 +4674,190 @@ def phase_lm_train(seed: int, card: str) -> tuple[dict, list[dict]]:
     report["seconds"] = time.perf_counter() - t0
     print(f"lm_train: phase {report['seconds']:.1f} s [{card}]")
     return report, rows
+
+
+# the logical meshes of the one card each model's state is restored onto.
+# The npz read runs at ~0.4 GB/s, so a restore of qwen2-1.5b's 15.4 GB
+# takes 37-51 s: its (1, 4) restore is cut to keep the script well
+# inside its time limit (mamba2-370m's 3.7 GB takes both)
+RESHARD_MESHES = {"qwen2-1.5b": ((2, 2),), "mamba2-370m": ((2, 2), (1, 4))}
+
+
+class _PeakRSS:
+    """The largest resident set of this process while the block runs,
+    sampled from ``/proc/self/statm`` every 2 ms on a thread."""
+
+    def __enter__(self):
+        self.peak, self._stop = _rss(), threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, _rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss())
+
+
+def _rss() -> int:
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _spec_shard_shape(shape, spec, mesh) -> tuple[tuple[int, ...], int]:
+    """(shard shape, number of distinct tiles) that ``spec`` gives a
+    ``shape`` tensor on ``mesh``, counted from the spec alone."""
+    dims, tiles = [], 1
+    for dim, part in zip(shape, spec):
+        names = () if part is None else (part,) if isinstance(part, str) else part
+        n = int(np.prod([mesh.shape[a] for a in names]))
+        dims.append(dim // n)
+        tiles *= n
+    return tuple(dims), tiles
+
+
+def _reshard_model(name: str, seed: int, card: str, ckpt_dir: str, kernels: dict, own: str) -> dict:
+    """Restore ``name``'s training state (params, AdamW m and v, step)
+    from ``lm_train``'s final checkpoint onto each of its
+    ``RESHARD_MESHES`` (logical meshes of cuda:0) and hold it to the
+    unsharded restore.
+    ``kernels`` maps each kernel's name to its (module, wrapper); the
+    forward from the gathered state must launch ``own`` once a layer and
+    no other."""
+    from repro_torch import configs
+    from repro_torch.checkpoint import checkpoint
+    from repro_torch.data import tokens as token_data
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model_api
+    from repro_torch.optim import AdamWConfig
+
+    cfg = configs.get_config(name)
+    mod = model_api.get_model(cfg)
+    step = checkpoint.latest_step(ckpt_dir)
+    params_t = specs.params_specs(cfg)
+    opt_t = specs.opt_specs(AdamWConfig(), params_t)
+    templates = {"params": params_t, "opt": opt_t, "err": {}}
+    axes = specs.params_logical_axes(cfg)
+    rules = shd.make_rules("train")
+
+    # the unsharded restore, moved to the card: what every re-mesh is held to
+    with _PeakRSS() as rss:
+        t0 = time.perf_counter()
+        host = checkpoint.restore(ckpt_dir, step, templates)
+        want = _map_leaves(host, lambda t: t.to("cuda"))
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    del host
+    flat_want = dict(_flat_leaves(want))
+    state_bytes = sum(t.numel() * t.element_size() for t in flat_want.values())
+    model = mod.init_params(cfg, torch.Generator("cuda").manual_seed(seed), device="cuda")
+    Bb, S = LM_TRAIN_SHAPE
+    ds = token_data.TokenStreamConfig(vocab=cfg.vocab, seq_len=S, seed=seed)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in token_data.batch_at_step(ds, LM_TRAIN_STEPS, Bb).items()}
+
+    @torch.no_grad()
+    def loss_of(params: dict) -> torch.Tensor:
+        for n, p in model.named_parameters():
+            p.copy_(params[n])
+        loss = mod.loss_fn(cfg, model, batch)
+        torch.cuda.synchronize()
+        return loss
+
+    want_loss = loss_of(want["params"])
+    rec = {"config": name, "step": step, "leaves": len(flat_want), "state_bytes": state_bytes,
+           "plain_restore_s": plain_s, "plain_peak_host_bytes": rss.peak,
+           "loss": float(want_loss), "meshes": {}}
+    print(f"reshard: {name} step {step}: {len(flat_want)} leaves, {state_bytes / 1e9:.3f} GB "
+          f"(params, AdamW m and v, step); unsharded restore to the card {plain_s:.2f} s, peak host "
+          f"RSS {rss.peak / 2**30:.2f} GiB; loss {float(want_loss):.6f} [{card}]")
+    for shape in RESHARD_MESHES[name]:
+        mesh = make_local_mesh(*shape, devices=("cuda:0",) * 4)
+        shardings = {"params": shd.tree_shardings(params_t, axes, rules, mesh),
+                     "opt": shd.tree_shardings(opt_t, specs.opt_logical_axes(axes), rules, mesh),
+                     "err": {}}
+        torch.cuda.empty_cache()
+        for kmod, _ in kernels.values():  # the counts of the path's run: restore, forward
+            kmod.reset_launches()
+        before = _rss()
+        with _PeakRSS() as rss:
+            t0 = time.perf_counter()
+            out = checkpoint.restore_resharded(ckpt_dir, step, templates, shardings)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        leaves = _flat_leaves(out)
+        if [p for p, _ in leaves] != list(flat_want):
+            raise AssertionError(f"{name} {shape}: restored leaves differ from the unsharded restore's")
+        for path, held in leaves:
+            if not isinstance(held, shd.ShardedTensor):
+                raise AssertionError(f"{name} {shape} {path}: {type(held).__name__}, not a ShardedTensor")
+            sub_shape, tiles = _spec_shard_shape(held.shape, held.sharding.spec, mesh)
+            positions = held.sharding.positions()
+            distinct = {tuple((s.start, s.stop) for s in held.index(*p)) for p in positions}
+            shards = [held.shard(*p) for p in positions]
+            if (len(shards) != mesh.size or len(distinct) != tiles
+                    or any(tuple(t.shape) != sub_shape or t.device != torch.device("cuda", 0) for t in shards)):
+                raise AssertionError(f"{name} {shape} {path}: {len(shards)} shards, {len(distinct)} tiles, "
+                                     f"shapes {[tuple(t.shape) for t in shards]} under {held.sharding.spec}")
+            if not _same_bits(held.full("cuda"), flat_want[path]):
+                raise AssertionError(f"{name} {shape} {path}: full() differs from the unsharded restore")
+        device_bytes = sum(held.nbytes for _, held in leaves)
+        got_loss = loss_of({n: held.full("cuda") for n, held in out["params"].items()})
+        launches = {k: fn.launches for k, (_, fn) in kernels.items()}
+        if not _same_bits(got_loss, want_loss):
+            raise AssertionError(f"{name} {shape}: loss {float(got_loss)!r} after the re-mesh, "
+                                 f"{float(want_loss)!r} unsharded")
+        if launches != {k: cfg.n_layers if k == own else 0 for k in kernels}:
+            raise AssertionError(f"{name} {shape}: launches {launches} in the forward of "
+                                 f"{cfg.n_layers} layers, {own} once a layer expected")
+        split = sum(1 for _, held in leaves if any(p is not None for p in held.sharding.spec))
+        rec["meshes"][f"{shape[0]}x{shape[1]}"] = {
+            "restore_s": restore_s, "shard_device_bytes": device_bytes, "peak_host_bytes": rss.peak,
+            "host_bytes_before": before, "split_leaves": split, "loss": float(got_loss),
+            "launches": launches,
+        }
+        print(f"reshard: {name} onto a logical ({shape[0]}, {shape[1]}) mesh of cuda:0: restore "
+              f"{restore_s:.2f} s, shards {device_bytes / 1e9:.3f} GB on the card ({split} of "
+              f"{len(leaves)} leaves split), peak host RSS {rss.peak / 2**30:.2f} GiB (before "
+              f"{before / 2**30:.2f}); every leaf's full() bitwise the unsharded restore, shard "
+              f"counts and shapes as the specs say; loss {float(got_loss):.6f} bitwise, "
+              f"launches {launches} [{card}]")
+        del out, leaves, got_loss
+    del want, flat_want, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _flat_leaves(tree, prefix=()) -> list:
+    """(path, leaf) of a dict tree, keys in order."""
+    if isinstance(tree, dict):
+        return [pl for k, v in tree.items() for pl in _flat_leaves(v, prefix + (k,))]
+    return [("/".join(prefix), tree)]
+
+
+def phase_reshard(seed: int, card: str, ckpt_root: str) -> dict:
+    """The elastic re-mesh of training state: qwen2-1.5b (B6) and
+    mamba2-370m (B5) restored from ``lm_train``'s final checkpoints onto
+    their ``RESHARD_MESHES`` of the card, then one forward loss at
+    ``LM_TRAIN_SHAPE`` from the gathered state."""
+    from repro_torch.kernels.flash import kernel as flash_kernel
+    from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+    t0 = time.perf_counter()
+    kernels = {"flash_fwd_cuda": (flash_kernel, flash_kernel.flash_fwd_cuda),
+               "ssd_chunked_cuda": (ssd_kernel, ssd_kernel.ssd_chunked_cuda)}
+    report = {}
+    for name in LM_TRAIN_MODELS:
+        own = "flash_fwd_cuda" if name.startswith("qwen2") else "ssd_chunked_cuda"
+        report[name] = _reshard_model(name, seed, card, os.path.join(ckpt_root, name), kernels, own)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"reshard: phase {report['seconds']:.1f} s [{card}]")
+    return report
 
 
 def main() -> int:
@@ -4658,9 +4931,16 @@ def main() -> int:
     mark("lm_mm")
     report["roofline"] = phase_roofline(args.seed, card)
     mark("roofline")
-    report["lm_train"], train_lm_rows = phase_lm_train(args.seed, card)
-    rows += train_lm_rows
-    mark("lm_train")
+    # lm_train leaves its final checkpoints for reshard, which restores them
+    ckpt_root = tempfile.mkdtemp(prefix="lm_train_")
+    try:
+        report["lm_train"], train_lm_rows = phase_lm_train(args.seed, card, ckpt_root)
+        rows += train_lm_rows
+        mark("lm_train")
+        report["reshard"] = phase_reshard(args.seed, card, ckpt_root)
+        mark("reshard")
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     report["phase_s"] = phase_s
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
           + f"; all {sum(phase_s.values()):.1f} s [{card}]")

@@ -33,7 +33,8 @@ as bfloat16 wherever the template leaf is a bfloat16 tensor.
 
 ``restore`` returns host leaves shaped like the template: a CPU tensor
 where the template leaf is a tensor, a numpy array otherwise; the caller
-moves them to its device.
+moves them to its device.  ``restore_resharded`` cuts them onto a
+device mesh instead (``distributed.sharding.ShardedTensor``).
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import NamedSharding, ShardedTensor
 
 PyTree = Any
 
@@ -236,20 +239,53 @@ def restore(ckpt_dir: str, step: int, templates: dict[str, PyTree]) -> dict:
     return out
 
 
+def _child(shardings, key):
+    """``shardings[key]``, or None where ``shardings`` has no such entry."""
+    try:
+        return shardings[key]
+    except (KeyError, IndexError, TypeError):
+        return None
+
+
+def _place(tree: PyTree, shardings: PyTree, where: str) -> PyTree:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)(
+            (k, _place(v, _child(shardings, k), f"{where}/{k}")) for k, v in tree.items()
+        )
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            _place(v, _child(shardings, i), f"{where}/{i}") for i, v in enumerate(tree)
+        )
+    if not isinstance(shardings, NamedSharding):
+        raise ValueError(
+            f"leaf {where!r} needs a mesh's sharding (a NamedSharding), got "
+            f"{type(shardings).__name__}"
+        )
+    leaf = tree if isinstance(tree, torch.Tensor) else torch.as_tensor(tree)
+    return ShardedTensor.from_full(leaf, shardings)
+
+
 def restore_resharded(
     ckpt_dir: str,
     step: int,
     templates: dict[str, PyTree],
     shardings: dict[str, PyTree],
 ) -> dict:
-    """Restore directly onto a device mesh's shardings (the elastic
-    re-mesh of training state).  Needs sharded parameters, which come
-    with LM training: raises."""
-    raise NotImplementedError(
-        "restoring onto a device mesh's shardings is not ported to the torch "
-        "package yet (sharded training state, ROADMAP A.7b); use restore() and "
-        "move the leaves"
-    )
+    """Restore onto a device mesh (the elastic re-mesh of training state).
+
+    ``shardings`` mirrors ``templates`` with
+    :class:`~repro_torch.distributed.sharding.NamedSharding` leaves (as
+    ``sharding.tree_shardings`` makes them).  Each leaf is restored to the
+    host by :func:`restore`, then cut onto its mesh as a
+    :class:`~repro_torch.distributed.sharding.ShardedTensor`, so a
+    checkpoint of either package, written from any mesh (it holds whole
+    tensors), lands on any mesh shape.  A leaf whose sharding is missing
+    or is not a ``NamedSharding`` raises a ``ValueError`` naming it; a
+    bfloat16 leaf needs a tensor template."""
+    host = restore(ckpt_dir, step, templates)
+    return {name: _place(tree, _child(shardings, name), name) for name, tree in host.items()}
 
 
 class CheckpointManager:

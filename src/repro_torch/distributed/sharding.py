@@ -11,22 +11,30 @@ resolution), and a mesh axis serves at most one dim.
 The serving rules put the ``grating`` axis (the arena's rows) on the
 ``model`` axis; the engine's mesh executor follows them without a
 lookup, since its shard-tiled packing already cuts the arena into one
-tile per model shard (``GratingPool.shards``).  Nothing in the port
-resolves a spec at run time yet: ``make_rules``, ``spec_for``,
-``tree_specs`` and ``is_axes_leaf`` wait for LM training's sharded
-parameters (ROADMAP A.7) and are held against the reference's by the
-tests meanwhile.
+tile per model shard (``GratingPool.shards``).
 
-The mesh only has to carry ``shape`` (a dict of axis sizes), so a
+Resolving needs only the mesh's ``shape`` (a dict of axis sizes), so a
 :class:`~repro_torch.launch.mesh.LocalMesh` and the reference's
-``jax.sharding.Mesh`` resolve alike.  Placing sharded parameters
-(``tree_shardings``, ``activate`` / ``constrain``) belongs to LM
-training and is not here.
+``jax.sharding.Mesh`` resolve alike.  Placing a tensor needs the
+devices too: a :class:`NamedSharding` pairs a ``LocalMesh`` with a
+spec (:func:`tree_shardings` makes a tree of them), and a
+:class:`ShardedTensor` holds a tensor as its shards on the mesh's
+devices, cut as ``jax.device_put`` cuts an array onto a
+``jax.sharding.NamedSharding``.  ``checkpoint.restore_resharded``
+restores training state onto them.  The activation constraints
+(``activate`` / ``constrain``) come with training on a mesh (ROADMAP
+A.7b).
 """
 
 from __future__ import annotations
 
-from typing import Any, Sequence
+import dataclasses
+from typing import TYPE_CHECKING, Any, Sequence
+
+import torch
+
+if TYPE_CHECKING:
+    from repro_torch.launch.mesh import LocalMesh
 
 PyTree = Any
 
@@ -152,3 +160,112 @@ def tree_specs(params: PyTree, axes_tree: PyTree, rules: Rules, mesh) -> PyTree:
     return type(axes_tree)(
         tree_specs(p, a, rules, mesh) for p, a in zip(params, axes_tree)
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A :class:`PartitionSpec` laid over a ``LocalMesh``: each dim named
+    by a mesh axis (or a tuple of them) is cut evenly over that axis, in
+    row-major mesh order (the first axis of a tuple most major); a dim
+    named ``None`` is replicated.  Mesh positions are ``(di, mi)``, the
+    ``(data, model)`` coordinates of ``mesh.device(di, mi)``."""
+
+    mesh: LocalMesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        names = [a for part in self.spec if part is not None
+                 for a in ((part,) if isinstance(part, str) else part)]
+        unknown = [a for a in names if a not in self.mesh.shape]
+        if unknown or len(set(names)) != len(names):
+            raise ValueError(
+                f"{self.spec!r} must name each axis of the mesh {self.mesh.shape} at most once"
+            )
+
+    def positions(self) -> list[tuple[int, int]]:
+        """Every mesh position, row-major."""
+        d, m = self.mesh.shape["data"], self.mesh.shape["model"]
+        return [(di, mi) for di in range(d) for mi in range(m)]
+
+    def index(self, shape: Sequence[int], di: int, mi: int) -> tuple[slice, ...]:
+        """The slice of a ``shape`` tensor that position ``(di, mi)`` holds
+        (the reference's ``devices_indices_map`` entry for its device);
+        raises where a mesh axis does not divide its dim (nothing pads)."""
+        if len(shape) != len(self.spec):
+            raise ValueError(f"{self.spec!r} has {len(self.spec)} dims, the tensor {tuple(shape)}")
+        coord = dict(zip(self.mesh.shape, (di, mi)))
+        out = []
+        for dim, part in zip(shape, self.spec):
+            n, c = 1, 0
+            for a in () if part is None else (part,) if isinstance(part, str) else part:
+                n, c = n * self.mesh.shape[a], c * self.mesh.shape[a] + coord[a]
+            if dim % n:
+                raise ValueError(f"{part!r} ({n} shards) does not divide a dim of {dim}")
+            # a dim on no axis, or on axes of size 1, is whole: slice(None)
+            out.append(slice(None) if n == 1 else slice(c * (dim // n), (c + 1) * (dim // n)))
+        return tuple(out)
+
+    def shard_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        return tuple(len(range(*s.indices(n))) for s, n in zip(self.index(shape, 0, 0), shape))
+
+
+def tree_shardings(params: PyTree, axes_tree: PyTree, rules: Rules, mesh) -> PyTree:
+    """:func:`tree_specs` with each spec laid over ``mesh`` as a
+    :class:`NamedSharding`."""
+
+    def lay(specs):
+        if isinstance(specs, PartitionSpec):
+            return NamedSharding(mesh, specs)
+        if isinstance(specs, dict):
+            return {k: lay(v) for k, v in specs.items()}
+        return type(specs)(lay(v) for v in specs)
+
+    return lay(tree_specs(params, axes_tree, rules, mesh))
+
+
+class ShardedTensor:
+    """A tensor held as its shards on a mesh: one contiguous tensor per
+    mesh position ``(di, mi)`` on ``mesh.device(di, mi)``, holding
+    ``sharding.index(shape, di, mi)`` of the full tensor.  Positions that
+    share a device (a logical mesh) still hold a shard each."""
+
+    def __init__(self, shape, dtype: torch.dtype, sharding: NamedSharding, shards: dict):
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.sharding = sharding
+        self._shards = dict(shards)
+
+    @classmethod
+    def from_full(cls, tensor: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+        """Cut ``tensor`` by ``sharding``: each position's slice copied into
+        a fresh tensor on its device."""
+        shard_shape = sharding.shard_shape(tensor.shape)
+        shards = {}
+        for pos in sharding.positions():
+            shard = torch.empty(shard_shape, dtype=tensor.dtype, device=sharding.mesh.device(*pos))
+            shards[pos] = shard.copy_(tensor[sharding.index(tensor.shape, *pos)])
+        return cls(tensor.shape, tensor.dtype, sharding, shards)
+
+    def shard(self, di: int, mi: int) -> torch.Tensor:
+        return self._shards[(di, mi)]
+
+    def index(self, di: int, mi: int) -> tuple[slice, ...]:
+        return self.sharding.index(self.shape, di, mi)
+
+    @property
+    def nbytes(self) -> int:
+        """The bytes the shards hold, replicas included."""
+        return sum(s.numel() * s.element_size() for s in self._shards.values())
+
+    def full(self, device) -> torch.Tensor:
+        """The whole tensor on ``device``, each region copied from the
+        first position that holds it."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        done = set()
+        for pos, shard in self._shards.items():
+            idx = self.index(*pos)
+            key = tuple((s.start, s.stop) for s in idx)
+            if key not in done:
+                out[idx].copy_(shard)
+                done.add(key)
+        return out

@@ -13,6 +13,10 @@ Whisper parameter tree into the port's module, and
 :func:`hybrid_params_from_numpy` the hybrid 3-D CNN's parameters.  Tenant kernel
 sets are numpy on both sides and need no conversion.  All take
 ``device=None`` to mean the card, as every port entry point does.
+:func:`leaves_by_name` runs the LM loaders' walk without copying: it maps
+each port parameter name to its leaf of a tree in the reference's
+layout (``launch.specs.params_logical_axes`` carries the reference's
+logical axes onto the port's names by it).
 """
 
 from __future__ import annotations
@@ -94,10 +98,10 @@ def _same_keys(tree: dict, want, where: str) -> None:
         raise ValueError(f"{where} hold {sorted(tree)}: missing {missing}, extra {extra}")
 
 
-def _load_stack(blocks, tree: dict, where: str) -> None:
+def _load_stack(blocks, tree: dict, where: str, put=_put) -> None:
     """Copy a stacked layer tree (each leaf (len(blocks), ...), a nested
-    dict for each child module) into ``blocks``, checking every field by
-    name, stack length, shape and dtype."""
+    dict for each child module) into ``blocks`` by ``put``, checking every
+    field by name and stack length (``_put`` checks shape and dtype)."""
     want = _fields(blocks[0])
     _same_keys(tree, want, where)
     for name, sub in tree.items():
@@ -107,32 +111,32 @@ def _load_stack(blocks, tree: dict, where: str) -> None:
                 f"the model holds a {'leaf' if want[name] is None else 'tree'}"
             )
         if isinstance(sub, dict):
-            _load_stack([getattr(b, name) for b in blocks], sub, f"{where}.{name}")
+            _load_stack([getattr(b, name) for b in blocks], sub, f"{where}.{name}", put)
             continue
         arr = np.asarray(sub)
         if arr.shape[:1] != (len(blocks),):
             raise ValueError(f"{where}.{name} stacks {arr.shape[:1]} layers, the model has {len(blocks)}")
         for i, b in enumerate(blocks):
-            _put(getattr(b, name), arr[i], f"{where}.{name}[{i}]")
+            put(getattr(b, name), arr[i], f"{where}.{name}[{i}]")
 
 
-def _load_module(module: torch.nn.Module, tree: dict, where: str) -> None:
+def _load_module(module: torch.nn.Module, tree: dict, where: str, put=_put) -> None:
     """Copy one unstacked subtree (a dict per child module) into
-    ``module``, checking every field by name, shape and dtype."""
+    ``module`` by ``put``, checking every field by name."""
     if not isinstance(tree, dict):
         raise ValueError(f"{where}: got a leaf, the model holds a tree")
     _same_keys(tree, _fields(module), where)
     for name, sub in tree.items():
         child = getattr(module, name)
         if isinstance(child, torch.nn.Module):
-            _load_module(child, sub, f"{where}.{name}")
+            _load_module(child, sub, f"{where}.{name}", put)
         elif isinstance(sub, dict):
             raise ValueError(f"{where}.{name}: got a tree, the model holds a leaf")
         else:
-            _put(child, sub, f"{where}.{name}")
+            put(child, sub, f"{where}.{name}")
 
 
-def _load_tree(model, params: dict, stacks: dict, others=()) -> None:
+def _load_tree(model, params: dict, stacks: dict, others=(), put=_put) -> None:
     """Copy a reference tree's ``embed``, ``final_norm``, ``lm_head`` (where
     the model holds one) and each stacked layer tree named in ``stacks``
     into ``model``; ``others`` are top-level keys the caller loads.  Any
@@ -141,9 +145,56 @@ def _load_tree(model, params: dict, stacks: dict, others=()) -> None:
     top = [n for n in ("embed", "final_norm", "lm_head") if hasattr(model, n)]
     _same_keys(params, [*top, *stacks, *others], "params")
     for name in top:
-        _put(getattr(model, name), params[name], name)
+        put(getattr(model, name), params[name], name)
     for name, blocks in stacks.items():
-        _load_stack(blocks, params[name], name)
+        _load_stack(blocks, params[name], name, put)
+
+
+def _fill(model: torch.nn.Module, params: dict, put=_put) -> None:
+    """Copy a reference LM parameter tree into ``model`` (a port LM of
+    any family) by ``put(parameter, leaf, where)``, each stacked leaf one
+    slice per layer; a field that is missing, extra, or stacked over
+    another number of layers raises a ``ValueError`` that names it."""
+    cfg = model.cfg
+    if isinstance(model, zamba.Zamba):
+        for group, want in (("layers", mamba2.LAYER_FIELDS), ("shared", zamba.SHARED_FIELDS)):
+            if set(params[group]) != set(want):
+                raise ValueError(f"{group} hold {sorted(params[group])}, cfg {cfg.name!r} has {sorted(want)}")
+        lead = (cfg.n_segments, cfg.shared_every)
+        layers = {}
+        for name in mamba2.LAYER_FIELDS:
+            arr = np.asarray(params["layers"][name])
+            if arr.shape[:2] != lead:
+                raise ValueError(
+                    f"layers.{name} stacks {arr.shape[:2]}, cfg has (n_segments, shared_every) = {lead}"
+                )
+            layers[name] = arr.reshape((-1,) + arr.shape[2:])
+        _load_tree(model, {**params, "layers": layers}, {"layers": model.layers}, ("shared",), put)
+        for name in zamba.SHARED_FIELDS:
+            put(getattr(model.shared, name), params["shared"][name], f"shared.{name}")
+    elif isinstance(model, whisper.Whisper):
+        others = ("dec_pos", "enc_ln_post", "dec_ln_post")
+        _load_tree(model, params, {"enc_layers": model.enc_layers, "dec_layers": model.dec_layers},
+                   others, put)
+        put(model.dec_pos, params["dec_pos"], "dec_pos")
+        for name in others[1:]:
+            _load_module(getattr(model, name), params[name], name, put)
+    else:
+        stacks = {"layers": model.layers}
+        if isinstance(model, mla.MLA) and cfg.first_k_dense:
+            stacks["dense_layers"] = model.dense_layers
+        _load_tree(model, params, stacks, put=put)
+
+
+def leaves_by_name(model: torch.nn.Module, tree: dict) -> dict:
+    """Each of ``model``'s parameters, by its name, mapped to the leaf of
+    a reference-layout tree that the loaders would copy into it: the
+    loaders' own walk (so the map cannot drift from them), recording in
+    place of copying.  A stacked leaf is an array over the layers (object
+    arrays serve), and each parameter takes its layer's element."""
+    taken = {}
+    _fill(model, tree, lambda p, leaf, where: taken.__setitem__(id(p), leaf))
+    return {name: taken[id(p)] for name, p in model.named_parameters()}
 
 
 @torch.no_grad()
@@ -158,7 +209,7 @@ def mamba2_params_from_numpy(params: dict, cfg: mamba2.Mamba2Config, device=None
     the shape and dtype the port's module holds for ``cfg``.
     """
     model = mamba2.Mamba2(cfg, resolve_device(device))
-    _load_tree(model, params, {"layers": model.layers})
+    _fill(model, params)
     return model
 
 
@@ -172,7 +223,7 @@ def transformer_params_from_numpy(
     fields of ``transformer.LAYER_FIELDS`` that ``cfg`` has (the biases
     with ``qkv_bias``, ``w_gate`` with the SwiGLU MLP)."""
     model = transformer.Transformer(cfg, resolve_device(device))
-    _load_tree(model, params, {"layers": model.layers})
+    _fill(model, params)
     return model
 
 
@@ -190,21 +241,7 @@ def zamba_params_from_numpy(params: dict, cfg: zamba.ZambaConfig, device=None) -
     or of another shape or dtype than the port's module holds for ``cfg``
     raises a ``ValueError`` that names it."""
     model = zamba.Zamba(cfg, resolve_device(device))
-    for group, want in (("layers", mamba2.LAYER_FIELDS), ("shared", zamba.SHARED_FIELDS)):
-        if set(params[group]) != set(want):
-            raise ValueError(f"{group} hold {sorted(params[group])}, cfg {cfg.name!r} has {sorted(want)}")
-    lead = (cfg.n_segments, cfg.shared_every)
-    layers = {}
-    for name in mamba2.LAYER_FIELDS:
-        arr = np.asarray(params["layers"][name])
-        if arr.shape[:2] != lead:
-            raise ValueError(
-                f"layers.{name} stacks {arr.shape[:2]}, cfg has (n_segments, shared_every) = {lead}"
-            )
-        layers[name] = arr.reshape((-1,) + arr.shape[2:])
-    _load_tree(model, {**params, "layers": layers}, {"layers": model.layers}, ("shared",))
-    for name in zamba.SHARED_FIELDS:
-        _put(getattr(model.shared, name), params["shared"][name], f"shared.{name}")
+    _fill(model, params)
     return model
 
 
@@ -217,7 +254,7 @@ def moe_params_from_numpy(params: dict, cfg: moe.MoEConfig, device=None) -> moe.
     A field that is missing, extra, or of another shape or dtype than the
     port's module holds for ``cfg`` raises a ``ValueError`` that names it."""
     model = moe.MoE(cfg, resolve_device(device))
-    _load_tree(model, params, {"layers": model.layers})
+    _fill(model, params)
     return model
 
 
@@ -228,10 +265,7 @@ def mla_params_from_numpy(params: dict, cfg: mla.MLAConfig, device=None) -> mla.
     ``final_norm``, ``lm_head``, the stacked ``dense_layers`` (when
     ``first_k_dense``) and the stacked MoE ``layers``."""
     model = mla.MLA(cfg, resolve_device(device))
-    stacks = {"layers": model.layers}
-    if cfg.first_k_dense:
-        stacks["dense_layers"] = model.dense_layers
-    _load_tree(model, params, stacks)
+    _fill(model, params)
     return model
 
 
@@ -242,7 +276,7 @@ def vlm_params_from_numpy(params: dict, cfg: vlm.VLMConfig, device=None) -> vlm.
     ``lm_head`` when the embeddings are not tied, the stacked ``layers``),
     as :func:`transformer_params_from_numpy`."""
     model = vlm.VLM(cfg, resolve_device(device))
-    _load_tree(model, params, {"layers": model.layers})
+    _fill(model, params)
     return model
 
 
@@ -260,12 +294,7 @@ def whisper_params_from_numpy(
     or dtype than the port's module holds for ``cfg`` raises a
     ``ValueError`` that names it."""
     model = whisper.Whisper(cfg, resolve_device(device))
-    others = ("dec_pos", "enc_ln_post", "dec_ln_post")
-    _load_tree(model, params, {"enc_layers": model.enc_layers, "dec_layers": model.dec_layers},
-               others)
-    _put(model.dec_pos, params["dec_pos"], "dec_pos")
-    for name in others[1:]:
-        _load_module(getattr(model, name), params[name], name)
+    _fill(model, params)
     return model
 
 

@@ -10,10 +10,12 @@ reference's ``jax.eval_shape`` traces them.  ``make_train_step`` and
 ``make_serve_step`` return the function a cell runs: the train step for
 training shapes, prefill or one decode token for inference shapes.
 
-The port's models carry no logical-axes tree, so ``params_specs`` and
-``decode_cache_specs`` return the tensors alone; the axes, and
-``make_train_step(grad_shardings=...)``, come with sharded training
-state (ROADMAP A.7b).
+``params_specs`` and ``decode_cache_specs`` return the tensors alone;
+``params_logical_axes`` and ``decode_cache_logical_axes`` give their
+logical axes (the second values of the reference's pair), keyed by the
+port's parameter names and cache keys, for ``distributed.sharding``'s
+rules.  ``make_train_step(grad_shardings=...)`` comes with training on a
+mesh (ROADMAP A.7b).
 
 The shape set (LM family):
 
@@ -28,8 +30,10 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
 import torch
 
+from repro_torch import interop
 from repro_torch.launch import train as train_lib
 from repro_torch.models import mamba2, mla, model_api, moe, transformer, vlm, whisper, zamba
 from repro_torch.optim import adamw
@@ -182,6 +186,48 @@ def decode_cache_specs(cfg, shape: str) -> dict:
 def params_specs(cfg) -> dict[str, Tensor]:
     """Every parameter by name, on ``meta``: nothing allocated."""
     return dict(abstract_model(cfg).named_parameters())
+
+
+def decode_cache_logical_axes(cfg, shape: str) -> dict[str, tuple]:
+    """The logical axes of each tensor of ``decode_cache_specs(cfg,
+    shape)``, by cache key (the port's cache stacks its layers as the
+    reference's does, so these are the reference's axes)."""
+    axes = model_api.get_model(cfg).CACHE_AXES
+    return {k: axes[k] for k in decode_cache_specs(cfg, shape)}
+
+
+# the stacked axes a reference layer tree leads with (Zamba-2 stacks its
+# Mamba-2 layers as (n_segments, shared_every))
+_STACKED = ("segments", "layers")
+
+
+def _over_layers(tree, n_layers: int, cfg):
+    """A stacked layer tree's axes with each leaf an array over the
+    layers, every element the axes of one layer's tensor (the stacked
+    entries dropped): the layout the interop loaders take a stack in."""
+    if isinstance(tree, dict):
+        return {k: _over_layers(v, n_layers, cfg) for k, v in tree.items()}
+    k = 2 if tree[:2] == _STACKED else 1
+    arr = np.empty((cfg.n_segments, n_layers // cfg.n_segments) if k == 2 else (n_layers,), object)
+    arr.fill(tree[k:])
+    return arr
+
+
+def params_logical_axes(cfg) -> dict[str, tuple]:
+    """Each parameter's logical axes by its name in ``params_specs``.
+
+    The family's ``logical_axes`` gives the reference's tree (layers
+    stacked, their axes led by ``layers``); the interop loaders' walk
+    (``interop.leaves_by_name``) carries it onto the port's names, each
+    layer's tensor taking the stacked axes without their ``layers`` (and
+    ``segments``) entries: ``layers.3.w_up`` gets ``("embed", "mlp")``."""
+    model = abstract_model(cfg)
+    tree = {
+        k: _over_layers(v, len(getattr(model, k)), cfg)
+        if isinstance(getattr(model, k, None), torch.nn.ModuleList) else v
+        for k, v in model_api.get_model(cfg).logical_axes(cfg).items()
+    }
+    return interop.leaves_by_name(model, tree)
 
 
 def opt_specs(opt_cfg: adamw.AdamWConfig, params_sds: dict[str, Tensor]) -> dict:

@@ -65,6 +65,13 @@ def ones_init(shape: tuple[int, ...], dtype: torch.dtype, device=None) -> Tensor
     return torch.ones(shape, dtype=dtype, device=device)
 
 
+def stacked_axes(axes: dict, lead: tuple[str, ...] = ("layers",)) -> dict:
+    """A logical-axes tree (nested dicts of tuples) with ``lead`` put in
+    front of every leaf: the axes the reference gives a layer tree it
+    stacks for ``lax.scan``."""
+    return {k: stacked_axes(v, lead) if isinstance(v, dict) else lead + v for k, v in axes.items()}
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -274,6 +274,25 @@ class Mamba2(nn.Module):
 
 loss_fn = transformer.loss_fn  # the cross-entropy of forward's logits
 
+# each parameter's and cache tensor's logical axes, as the reference's
+# ``init_params`` and ``init_cache`` give them
+LAYER_AXES = {
+    "ln": (None,), "in_proj": ("embed", "conv_dim"), "conv_w": ("conv_dim", None),
+    "conv_b": ("conv_dim",), "A_log": ("ssm_heads",), "D": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",), "norm_w": ("conv_dim",), "out_proj": ("conv_dim", "embed"),
+}
+CACHE_AXES = {
+    "conv": ("layers", "batch", None, "conv_dim"),
+    "ssm": ("layers", "batch", "ssm_heads", None, None),
+    "length": (),
+}
+
+
+def logical_axes(cfg: Mamba2Config) -> dict:
+    """Every parameter's logical axes in the reference's tree, as
+    :func:`repro_torch.models.transformer.logical_axes`."""
+    return {**transformer.outer_axes(cfg), "layers": common.stacked_axes(LAYER_AXES)}
+
 
 @torch.no_grad()
 def init_params(

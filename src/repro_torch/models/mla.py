@@ -307,6 +307,31 @@ class MLA(nn.Module):
 
 loss_fn = moe.loss_fn  # cross-entropy + router_aux_coef × aux
 
+# each attention parameter's and cache tensor's logical axes, as the
+# reference's ``init_params`` and ``init_cache`` give them
+ATTN_AXES = {
+    "ln1": (None,), "wq": ("embed", "heads"), "w_dkv": ("embed", "kv_lora"),
+    "kv_ln": (None,), "w_ukv": ("kv_lora", "heads"), "wo": ("heads", "embed"),
+}
+_LATENT_AXES = ("layers", "batch", "kv_seq", None)
+CACHE_AXES = {
+    "ckv_moe": _LATENT_AXES, "kr_moe": _LATENT_AXES,
+    "ckv_dense": _LATENT_AXES, "kr_dense": _LATENT_AXES,
+    "length": (),
+}
+
+
+def logical_axes(cfg: MLAConfig) -> dict:
+    """Every parameter's logical axes in the reference's tree: ``embed``,
+    ``final_norm``, ``lm_head``, the stacked ``dense_layers`` (with
+    ``first_k_dense``) and the stacked MoE ``layers``."""
+    dense = {n: transformer.LAYER_AXES[n] for n in ("ln2", "w_gate", "w_up", "w_down")}
+    axes = {"embed": ("vocab", "embed"), "final_norm": (None,), "lm_head": ("embed", "vocab"),
+            "layers": common.stacked_axes({**ATTN_AXES, "ln2": (None,), "moe": moe.moe_axes(cfg)})}
+    if cfg.first_k_dense:
+        axes["dense_layers"] = common.stacked_axes({**ATTN_AXES, **dense})
+    return axes
+
 
 @torch.no_grad()
 def init_params(cfg: MLAConfig, generator: torch.Generator | None = None, device=None) -> MLA:

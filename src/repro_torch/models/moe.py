@@ -269,6 +269,33 @@ class MoE(transformer.Transformer):
         return self._head(x), torch.stack(auxs).mean()
 
 
+# each MoE parameter's logical axes, as the reference's ``moe_init`` gives
+# them; the decode cache is the dense transformer's
+MOE_AXES = {
+    "router": ("embed", "expert"),
+    "we_gate": ("expert", "embed", "expert_mlp"),
+    "we_up": ("expert", "embed", "expert_mlp"),
+    "we_down": ("expert", "expert_mlp", "embed"),
+    "ws_gate": ("embed", "mlp"), "ws_up": ("embed", "mlp"), "ws_down": ("mlp", "embed"),
+}
+CACHE_AXES = transformer.CACHE_AXES
+
+
+def moe_axes(cfg: MoEConfig) -> dict[str, tuple]:
+    """The axes of the MoE parameters ``cfg`` has."""
+    return {n: MOE_AXES[n] for n in moe_shapes(cfg)}
+
+
+def logical_axes(cfg: MoEConfig) -> dict:
+    """Every parameter's logical axes in the reference's tree, as
+    :func:`repro_torch.models.transformer.logical_axes`, each layer's MoE
+    under ``moe``."""
+    per_layer = {**transformer.LAYER_AXES, "ln3": (None,)}
+    layer = {n: per_layer[n] for n in layer_shapes(cfg)}
+    return {**transformer.outer_axes(cfg),
+            "layers": common.stacked_axes({**layer, "moe": moe_axes(cfg)})}
+
+
 def loss_fn(cfg: MoEConfig, model: nn.Module, batch: dict) -> Tensor:
     """Cross-entropy of the logits plus ``router_aux_coef`` × the aux."""
     logits, aux = model(batch["tokens"])

@@ -131,6 +131,36 @@ def layer_shapes(cfg: TransformerConfig) -> dict[str, tuple[int, ...]]:
     return shapes
 
 
+# each parameter's logical axes, as the reference's ``init_params`` gives
+# them (its second value), for the sharding rules
+LAYER_AXES = {
+    "ln1": (None,), "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"), "ln2": (None,),
+    "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",),
+    "w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed"),
+}
+# the decode cache's, by cache key (the reference's ``init_cache``)
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
+CACHE_AXES = {"k": KV_AXES, "v": KV_AXES, "length": ()}
+
+
+def outer_axes(cfg: TransformerConfig) -> dict[str, tuple]:
+    """The axes of ``embed``, ``final_norm`` and (untied) ``lm_head``."""
+    axes = {"embed": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
+def logical_axes(cfg: TransformerConfig) -> dict:
+    """Every parameter's logical axes in the reference's tree: the outer
+    parameters, and ``layers`` with the fields ``cfg`` has, each leaf
+    led by the stacked ``layers`` axis (the port's names come from
+    ``launch.specs.params_logical_axes``)."""
+    layer = {n: LAYER_AXES[n] for n in layer_shapes(cfg)}
+    return {**outer_axes(cfg), "layers": common.stacked_axes(layer)}
+
+
 class TransformerBlock(nn.Module):
     """One pre-norm residual layer: attention, then the MLP (the
     reference's ``_qkv``, ``_attn_out`` and ``_mlp``).  Its parameters

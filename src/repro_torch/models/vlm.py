@@ -60,6 +60,11 @@ class VLM(transformer.Transformer):
         return self._prefill_embedded(self._inputs(batch), M)
 
 
+# the dense transformer's parameters and cache, so its logical axes
+logical_axes = transformer.logical_axes
+CACHE_AXES = transformer.CACHE_AXES
+
+
 def loss_fn(cfg: VLMConfig, model: transformer.Transformer, batch: dict) -> Tensor:
     """The cross-entropy of the logits at the text positions (after the
     ``n_patches`` prefix) against ``batch["labels"]`` (B, S)."""

@@ -312,6 +312,33 @@ class Whisper(nn.Module):
         return self._logits(x)[:, 0], {**cache, "length": pos + 1}
 
 
+# each parameter's and cache tensor's logical axes, as the reference's
+# ``init_params`` and ``init_cache`` give them
+LN_AXES = {"w": (None,), "b": (None,)}
+ATTN_AXES = {
+    "wq": ("embed", "heads"), "wk": ("embed", "heads"), "wv": ("embed", "heads"),
+    "wo": ("heads", "embed"), "bq": ("heads",), "bv": ("heads",), "bo": (None,),
+}
+MLP_AXES = {"w1": ("embed", "mlp"), "b1": ("mlp",), "w2": ("mlp", "embed"), "b2": (None,)}
+_KV_AXES = ("layers", "batch", "kv_seq", "heads", None)
+CACHE_AXES = {"self_k": _KV_AXES, "self_v": _KV_AXES, "cross_k": _KV_AXES, "cross_v": _KV_AXES,
+              "length": ()}
+
+
+def logical_axes(cfg: WhisperConfig) -> dict:
+    """Every parameter's logical axes in the reference's tree: ``embed``,
+    ``dec_pos``, the two final LayerNorms and the stacked ``enc_layers``
+    and ``dec_layers``."""
+    enc = {"ln1": LN_AXES, "attn": ATTN_AXES, "ln2": LN_AXES, "mlp": MLP_AXES}
+    dec = {"ln1": LN_AXES, "self_attn": ATTN_AXES, "ln2": LN_AXES, "cross_attn": ATTN_AXES,
+           "ln3": LN_AXES, "mlp": MLP_AXES}
+    return {
+        "embed": ("vocab", "embed"), "dec_pos": (None, "embed"),
+        "enc_ln_post": dict(LN_AXES), "dec_ln_post": dict(LN_AXES),
+        "enc_layers": common.stacked_axes(enc), "dec_layers": common.stacked_axes(dec),
+    }
+
+
 def loss_fn(cfg: WhisperConfig, model: nn.Module, batch: dict) -> Tensor:
     """The mean cross-entropy of the decoder's logits on ``batch``
     (``frames``, ``tokens``) against ``batch["labels"]``."""

@@ -267,6 +267,32 @@ class Zamba(mamba2.Mamba2):
 
 loss_fn = transformer.loss_fn  # the cross-entropy of forward's logits
 
+# the shared block's and the decode cache's logical axes, as the
+# reference's ``init_params`` and ``init_cache`` give them
+SHARED_AXES = {
+    "ln1": (None,), "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"), "ln2": (None,),
+    "w_up": ("embed", "mlp"), "w_down": ("mlp", "embed"), "proj_out": ("embed", None),
+}
+_KV_AXES = ("segments", "batch", "kv_seq", "kv_heads", None)
+CACHE_AXES = {
+    "attn_k": _KV_AXES,
+    "attn_v": _KV_AXES,
+    "conv": ("segments", "layers", "batch", None, "conv_dim"),
+    "ssm": ("segments", "layers", "batch", "ssm_heads", None, None),
+    "x0": ("batch", None, None),
+    "length": (),
+}
+
+
+def logical_axes(cfg: ZambaConfig) -> dict:
+    """Every parameter's logical axes in the reference's tree: the Mamba-2
+    backbone's, its ``layers`` stacked as (n_segments, shared_every) and
+    so led by ``segments``, and ``shared``."""
+    axes = mamba2.logical_axes(cfg)
+    axes["layers"] = common.stacked_axes(axes["layers"], ("segments",))
+    return {**axes, "shared": dict(SHARED_AXES)}
+
 
 @torch.no_grad()
 def init_params(

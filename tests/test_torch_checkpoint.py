@@ -8,9 +8,15 @@ and bfloat16 leaves in nested dicts and lists) restores bitwise through
 the port, and one written by the port restores bitwise through the
 reference; both packages key a tree's leaves by the same paths.  Inside
 the port: bfloat16 tensors roundtrip bitwise, the manager's snapshot is a
-copy taken before ``save`` returns, and the mesh restore raises.
+copy taken before ``save`` returns.  The elastic restore
+(``restore_resharded``, the twin of ``tests/test_fault.py::
+test_elastic_reshard_subprocess``): granite-8b's smoke params and AdamW
+state saved from one device land bitwise on (2, 2) and (1, 4) logical
+meshes, and a reference checkpoint lands bitwise through the port; a
+leaf without a mesh's sharding raises.
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -18,9 +24,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro import configs as r_configs  # noqa: E402
 from repro.checkpoint import checkpoint as r_ckpt  # noqa: E402
+from repro.models import model_api as r_model_api  # noqa: E402
+from repro_torch import configs as t_configs  # noqa: E402
 from repro_torch.checkpoint import (  # noqa: E402
     CheckpointManager,
     latest_step,
@@ -30,7 +40,12 @@ from repro_torch.checkpoint import (  # noqa: E402
     save,
 )
 from repro_torch.checkpoint import checkpoint as t_ckpt  # noqa: E402
+from repro_torch.distributed import sharding as shd  # noqa: E402
 from repro_torch.distributed.fault import ChaosInjector, ChaosRule, InjectedFault  # noqa: E402
+from repro_torch.launch import specs as t_specs  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.models import model_api  # noqa: E402
+from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
 
 def _tree(seed=0):
@@ -265,8 +280,84 @@ def test_manager_snapshot_is_a_copy_taken_before_save_returns(tmp_path):
 
 def test_restore_resharded_needs_the_mesh(tmp_path):
     save(str(tmp_path), 1, {"params": _tree()})
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="mesh"):
         restore_resharded(str(tmp_path), 1, {"params": _tree()}, {"params": None})
+
+
+def _granite_state(seed=0):
+    """granite-8b's smoke params on the CPU and an AdamW state of the same
+    tree, its moments drawn from a seed (so no leaf is all zeros)."""
+    cfg = t_configs.get_smoke_config("granite-8b")
+    model = model_api.get_model(cfg).init_params(cfg, torch.Generator().manual_seed(seed), device="cpu")
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    opt = adamw_init(AdamWConfig(), params)
+    g = torch.Generator().manual_seed(seed + 1)
+    for n, p in params.items():
+        opt["m"][n].copy_(torch.randn(p.shape, generator=g))
+        opt["v"][n].copy_(torch.rand(p.shape, generator=g))
+    opt["step"].fill_(3)
+    return cfg, params, opt
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
+def test_elastic_restore_onto_a_mesh_bitwise(tmp_path, mesh_shape):
+    """Saved from one device, restored onto a logical mesh of four CPU
+    positions: every leaf a ShardedTensor under its sharding whose
+    ``full()`` is the saved tensor bitwise; ``layers.0.w_up`` holds four
+    distinct shards of its spec's shape."""
+    cfg, params, opt = _granite_state()
+    save(str(tmp_path), 1, {"params": params, "opt": opt})
+    mesh = make_local_mesh(*mesh_shape, devices=("cpu",) * 4)
+    rules = shd.make_rules("train")
+    axes = t_specs.params_logical_axes(cfg)
+    shardings = {
+        "params": shd.tree_shardings(params, axes, rules, mesh),
+        "opt": shd.tree_shardings(opt, t_specs.opt_logical_axes(axes), rules, mesh),
+    }
+    saved = {"params": params, "opt": opt}
+    out = restore_resharded(str(tmp_path), 1, saved, shardings)
+    n = 0
+    for name in saved:
+        want = dict(t_ckpt._leaves_with_paths(saved[name]))
+        lay = dict(t_ckpt._leaves_with_paths(shardings[name]))
+        for path, held in t_ckpt._leaves_with_paths(out[name]):
+            assert isinstance(held, shd.ShardedTensor) and held.sharding == lay[path], path
+            assert held.dtype == want[path].dtype
+            np.testing.assert_array_equal(_bits(held.full("cpu")), _bits(want[path]))
+            n += 1
+    assert n == 3 * len(params) + 1
+    w_up = out["params"]["layers.0.w_up"]
+    D, F = w_up.shape
+    assert w_up.sharding.spec == ("data", "model")
+    positions = w_up.sharding.positions()
+    shards = [w_up.shard(*p) for p in positions]
+    assert len({s.data_ptr() for s in shards}) == 4
+    assert len({tuple((s.start, s.stop) for s in w_up.index(*p)) for p in positions}) == 4
+    assert all(tuple(s.shape) == (D // mesh_shape[0], F // mesh_shape[1]) for s in shards)
+
+
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 4)])
+def test_reference_checkpoint_restores_resharded_through_port(tmp_path, mesh_shape):
+    """A checkpoint the reference writes of its stacked bf16 params
+    (granite-8b smoke) restores onto the port's mesh bitwise, sharded by
+    the reference-layout axes tree of the port's family module."""
+    rcfg = dataclasses.replace(r_configs.get_smoke_config("granite-8b"), param_dtype=jnp.bfloat16)
+    r_params, _ = r_model_api.get_model(rcfg).init_params(rcfg, jax.random.PRNGKey(0))
+    r_ckpt.save(str(tmp_path), 2, {"params": r_params})
+    tcfg = t_configs.get_smoke_config("granite-8b", param_dtype=torch.bfloat16)
+    templates = jax.tree.map(lambda x: torch.empty(x.shape, dtype=torch.bfloat16, device="meta"), r_params)
+    mesh = make_local_mesh(*mesh_shape, devices=("cpu",) * 4)
+    sh = shd.tree_shardings(templates, model_api.get_model(tcfg).logical_axes(tcfg),
+                            shd.make_rules("train"), mesh)
+    out = restore_resharded(str(tmp_path), 2, {"params": templates}, {"params": sh})["params"]
+    want = dict(t_ckpt._leaves_with_paths(jax.tree.map(np.asarray, r_params)))
+    got = list(t_ckpt._leaves_with_paths(out))
+    assert [p for p, _ in got] == list(want)
+    for path, held in got:
+        assert held.dtype == torch.bfloat16 and held.shape == want[path].shape
+        np.testing.assert_array_equal(_bits(held.full("cpu")), want[path].view(np.uint16))
+    w_up = out["layers"]["w_up"]
+    assert w_up.sharding.spec == (None, "data", "model")  # the stacked layers dim stays whole
 
 
 # -- parity with the reference -------------------------------------------------
