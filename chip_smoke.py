@@ -365,7 +365,7 @@ Phases, each reported on lines of its own:
              final checkpoints of qwen2-1.5b and mamba2-370m (bf16
              params, float32 AdamW m and v, the step) restored by
              ``checkpoint.restore_resharded`` onto logical meshes of
-             ``cuda:0``: (2, 2) and (1, 4) for mamba2-370m, (2, 2) for
+             ``cuda:0``: (1, 4) and (2, 2) for mamba2-370m, (2, 2) for
              qwen2-1.5b (its (1, 4) restore is cut for time: the npz
              read runs at ~0.4 GB/s), each leaf a ``ShardedTensor`` under
              ``tree_shardings`` of ``specs.params_logical_axes`` and the
@@ -379,6 +379,28 @@ Phases, each reported on lines of its own:
              shards' device bytes and the peak host RSS (sampled from
              ``/proc/self/statm``); every line ends in the card's name and
              power limit.  The checkpoints are removed after it.
+18. mesh_train — inside ``reshard``, on each model's last re-mesh, the
+             (2, 2) state still held: training on a mesh through
+             ``launch.train.mesh_step``.  First 3 one-device steps of 4 x
+             2048 from the unsharded restore (consumed in place), 2
+             microbatches of 2 x 2048; then 3 steps on the (2, 2) state,
+             each data rank's 2 x 2048 rows one microbatch, and one more
+             step under the profiler.  Gated: each step's loss within
+             1e-3 of the one-device step's (bf16); every loss and grad
+             norm finite; B6 (or B5) launched data x n_micro x a
+             microbatch's (2 x layers, full remat) times a step, the
+             other kernel never, the counts zeroed before the phase;
+             one step's gradients on a (1, 4) mesh with n_micro 2 and
+             ``grad_shardings``, every tile bitwise the one-device
+             gradients' slice, and the loss bitwise (deterministic
+             algorithms); the kernel's row at a rank's 2 x 2048 against
+             its plain version; the granite-8b (for qwen2-1.5b) or
+             mamba2-370m smoke config in float32 on a (2, 2) mesh within
+             ``tests/test_torch_mesh_train.py``'s bounds.  Printed: step
+             ms on the mesh and on one device, the device span (CUDA
+             events) and busy ms (the profiled step's raw events) of
+             the all-gathers, reduce-scatters and tile AdamW, the peak
+             memory, the final parameters' worst rel L2 (bf16).
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -478,6 +500,7 @@ SCHED_RTOL = 1e-5
 SCHED_RESULT_TIMEOUT_S = 180
 STORM_REQUESTS, STORM_FRAMES, STORM_SEED = 32, 256, 100
 POISON_EVERY = 8  # every 8th storm clip carries NaNs
+STORM_DRAIN_S = 10.0  # bound on the wait for the batcher to take the expired probe
 BREAKER_RECOVERY_S = 0.15
 # the replica phase: benchmarks/chaos.py's three replica rows at their
 # request counts, paper-geometry replicas, 1024-frame clips; each replica
@@ -1535,6 +1558,12 @@ def _storm(tenants, kernel) -> dict:
         elapsed = time.perf_counter() - t0
         probe = sched.submit("A", reqs[0][1], block=True, deadline_s=0.0)
         deadline_typed = isinstance(probe.exception(timeout=60), DeadlineExceeded)
+        # the watchdog resolves the probe at its deadline, possibly before
+        # the batcher has taken it off the queue: give the batcher up to
+        # STORM_DRAIN_S to take it, then read the backlog before close
+        t_drain = time.perf_counter()
+        while sched.metrics()["queue_depth"] and time.perf_counter() - t_drain < STORM_DRAIN_S:
+            time.sleep(0.005)
         m = sched.metrics()
     stop.set()
     churn_job.result(timeout=60)
@@ -4680,7 +4709,22 @@ def phase_lm_train(seed: int, card: str, ckpt_root: str) -> tuple[dict, list[dic
 # The npz read runs at ~0.4 GB/s, so a restore of qwen2-1.5b's 15.4 GB
 # takes 37-51 s: its (1, 4) restore is cut to keep the script well
 # inside its time limit (mamba2-370m's 3.7 GB takes both)
-RESHARD_MESHES = {"qwen2-1.5b": ((2, 2),), "mamba2-370m": ((2, 2), (1, 4))}
+RESHARD_MESHES = {"qwen2-1.5b": ((2, 2),), "mamba2-370m": ((1, 4), (2, 2))}
+# mesh_train: the last reshard mesh (the (2, 2) state, still held) takes
+# MESH_TRAIN_STEPS steps of LM_TRAIN_SHAPE, each data rank's rows in
+# MESH_TRAIN_N_MICRO microbatches, beside a one-device run of the same
+# steps from the same state with data x n_micro microbatches; the losses
+# within MESH_TRAIN_LOSS_ATOL (the reference test's bound: bf16 GEMMs)
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_N_MICRO = 1
+MESH_TRAIN_LOSS_ATOL = 1e-3
+# one step's gradients on (1, 4) with n_micro 2 and grad_shardings,
+# bitwise the one-device gradients' slices (deterministic algorithms)
+MESH_GRAD_MESH, MESH_GRAD_N_MICRO = (1, 4), 2
+# the smoke config in float32 on (2, 2): the CPU test's bounds
+# (tests/test_torch_mesh_train.py: loss 1e-6 relative, every parameter,
+# m and v 1e-5 relative L2 after two steps of 8 x 16, n_micro 2)
+MESH_SMOKE_LOSS_RTOL, MESH_SMOKE_STATE_RTOL = 1e-6, 1e-5
 
 
 class _PeakRSS:
@@ -4827,10 +4871,294 @@ def _reshard_model(name: str, seed: int, card: str, ckpt_dir: str, kernels: dict
               f"{before / 2**30:.2f}); every leaf's full() bitwise the unsharded restore, shard "
               f"counts and shapes as the specs say; loss {float(got_loss):.6f} bitwise, "
               f"launches {launches} [{card}]")
-        del out, leaves, got_loss
+        del leaves, got_loss
+        if shape == RESHARD_MESHES[name][-1]:  # the (2, 2) state, still held, trains
+            for kmod, _ in kernels.values():  # the counts of the mesh_train path's run
+                kmod.reset_launches()
+            rec["mesh_train"], rec["mesh_train_rows"] = _mesh_train(
+                name, cfg, seed, card, model, want, flat_want, out, mesh, kernels, own)
+        del out
     del want, flat_want, model
     torch.cuda.empty_cache()
     return rec
+
+
+# the parts of the mesh executor that mesh_train times and profiles:
+# the gathers and reduce-scatters of
+# ``distributed.sharding`` and the tile AdamW of ``launch.train``
+MESH_PARTS = ("all_gather", "reduce_scatter", "tile AdamW")
+
+
+@contextlib.contextmanager
+def _collective_timer(record: dict):
+    """Within the block, every ``sharding.all_gather`` and
+    ``sharding.reduce_scatter`` call and every ``train.sharded_adamw``
+    call of the mesh executor is bracketed by two CUDA events and runs
+    inside ``record_function("mesh_train::<part>")``; ``record`` maps
+    each part to its event pairs (read after a synchronisation).  An
+    event pair spans the device timeline from the call's first launch to
+    its last, the device's waits for the host's launches included."""
+    from torch.profiler import record_function
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as train_lib
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with record_function(f"mesh_train::{name}"):
+                start.record()
+                out = fn(*a, **kw)
+                stop.record()
+            record.setdefault(name, []).append((start, stop))
+            return out
+        return wrapped
+
+    saved = (shd.all_gather, shd.reduce_scatter, train_lib.sharded_adamw)
+    shd.all_gather = timed("all_gather", saved[0])
+    shd.reduce_scatter = timed("reduce_scatter", saved[1])
+    train_lib.sharded_adamw = timed("tile AdamW", saved[2])
+    try:
+        yield
+    finally:
+        shd.all_gather, shd.reduce_scatter, train_lib.sharded_adamw = saved
+
+
+# the smoke config each full-size model's mesh_train holds in float32:
+# the two of tests/test_torch_mesh_train.py (granite-8b's smoke config is
+# the dense family's there: qwen2's k bias has an exact gradient of zero,
+# so its AdamW moments are rounding noise on either side)
+MESH_SMOKE_CONFIGS = {"qwen2-1.5b": "granite-8b", "mamba2-370m": "mamba2-370m"}
+
+
+def _rel_l2_or_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Relative L2 of a against b, the plain L2 of a - b where b is zero."""
+    norm = float(torch.linalg.vector_norm(b.double()))
+    diff = float(torch.linalg.vector_norm((a - b).double()))
+    return diff / norm if norm > 0 else diff
+
+
+def _mesh_smoke(name: str, card: str) -> dict:
+    """``name``'s smoke config in float32 on a logical (2, 2) mesh of
+    cuda:0 against the one-device step with data x n_micro microbatches,
+    as ``tests/test_torch_mesh_train.py`` runs them on the CPU: two steps
+    of 8 x 16, n_micro 2; the CPU test's bounds."""
+    from repro_torch import configs
+    from repro_torch.data import tokens as token_data
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import model_api
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = configs.get_smoke_config(name)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    mesh = make_local_mesh(2, 2, devices=("cuda:0",) * 4)
+
+    def fresh():
+        m = model_api.get_model(cfg).init_params(cfg, torch.Generator("cuda").manual_seed(0), device="cuda")
+        return m.requires_grad_(True)
+
+    m1, m2 = fresh(), fresh()
+    o1 = adamw_init(opt_cfg, train_lib.trainable(m1))
+    sm, o2, e2 = train_lib.to_mesh(cfg, m2, adamw_init(opt_cfg, train_lib.trainable(m2)), {}, mesh)
+    f1 = train_lib.make_step_fn(cfg, opt_cfg, train_lib.TrainConfig(steps=2, batch=8, seq=16, n_micro=4))
+    f2 = train_lib.make_step_fn(cfg, opt_cfg, train_lib.TrainConfig(steps=2, batch=8, seq=16, n_micro=2))
+    ds = token_data.TokenStreamConfig(vocab=cfg.vocab, seq_len=16, seed=0)
+    losses = []
+    for step in range(2):
+        batch = {k: torch.from_numpy(v).cuda() for k, v in token_data.batch_at_step(ds, step, 8).items()}
+        _, o1, _, a = f1(m1, o1, {}, batch, step)
+        _, o2, e2, b = f2(sm, o2, e2, batch, step)
+        losses.append((float(a["loss"]), float(b["loss"])))
+    loss_rel = max(abs(a - b) / abs(a) for a, b in losses)
+    worst = 0.0
+    for n, p in train_lib.trainable(m1).items():
+        for want, held in ((p, sm.params[n]), (o1["m"][n], o2["m"][n]), (o1["v"][n], o2["v"][n])):
+            worst = max(worst, _rel_l2_or_diff(held.full("cuda").float(), want.detach().float()))
+    print(f"mesh_train: {cfg.name} float32 on (2, 2) vs one device, 2 steps of 8x16, n_micro 2: "
+          f"loss max rel diff {loss_rel:.3g} (<= {MESH_SMOKE_LOSS_RTOL:g}), worst parameter / m / v "
+          f"rel L2 {worst:.3g} (<= {MESH_SMOKE_STATE_RTOL:g}) [{card}]")
+    if not (loss_rel <= MESH_SMOKE_LOSS_RTOL and worst <= MESH_SMOKE_STATE_RTOL):
+        raise AssertionError(f"{cfg.name}: the float32 mesh step left the one-device step's bounds: "
+                             f"loss {loss_rel:.3g}, state {worst:.3g}")
+    return {"losses": losses, "loss_max_rel": loss_rel, "state_worst_rel_l2": worst}
+
+
+def _mesh_train(name: str, cfg, seed: int, card: str, model, want: dict, flat_want: dict,
+                held: dict, mesh, kernels: dict, own: str) -> tuple[dict, list[dict]]:
+    """Train ``name`` at full size on the logical ``mesh`` of cuda:0 from
+    the sharded state ``held`` that ``restore_resharded`` just gave
+    (``launch.train.mesh_step``), beside the one-device steps from the
+    same state (``want``, the unsharded restore, which the one-device run
+    consumes in place: it runs first and keeps only its losses and final
+    parameters), then one step's gradients on (1, 4) with
+    ``grad_shardings``, and the smoke config in float32.  Returns the
+    report and the kernel's row at a data rank's shape."""
+    from repro_torch.data import tokens as token_data
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as train_lib
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.optim import AdamWConfig
+
+    t0 = time.perf_counter()
+    data = mesh.shape["data"]
+    Bb, S = LM_TRAIN_SHAPE
+    start = int(want["opt"]["step"])
+    opt_cfg = AdamWConfig(lr=1e-3)
+    tc = dict(steps=start + MESH_TRAIN_STEPS, batch=Bb, seq=S, seed=seed)
+    ds = token_data.TokenStreamConfig(vocab=cfg.vocab, seq_len=S, seed=seed)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in token_data.batch_at_step(ds, start + i, Bb).items()}
+               for i in range(MESH_TRAIN_STEPS + 1)]  # the last for the profiled mesh step
+    fns = {n: fn for n, (_, fn) in kernels.items()}
+
+    def run(step_fn, state, tag):
+        rec = []
+        for i, batch in enumerate(batches[:MESH_TRAIN_STEPS]):
+            torch.cuda.synchronize()
+            before = {n: fn.launches for n, fn in fns.items()}
+            t1 = time.perf_counter()
+            _, opt, err, metrics = step_fn(state[0], state[1], state[2], batch, start + i)
+            torch.cuda.synchronize()
+            rec.append({"ms": (time.perf_counter() - t1) * 1e3, "loss": float(metrics["loss"]),
+                        "grad_norm": float(metrics["grad_norm"]),
+                        "launches": {n: fn.launches - before[n] for n, fn in fns.items()}})
+            state = (state[0], opt, err)
+        print(f"mesh_train: {name} {tag}: step ms {[round(r['ms'], 2) for r in rec]}, losses "
+              f"{[r['loss'] for r in rec]}, launches a step {[r['launches'] for r in rec]} [{card}]")
+        return rec
+
+    # the one-device steps first, on the unsharded state, in place
+    model.requires_grad_(True)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(want["params"][n])
+    one_opt = {"m": want["opt"]["m"], "v": want["opt"]["v"], "step": want["opt"]["step"].clone()}
+    n_one = data * MESH_TRAIN_N_MICRO
+    torch.cuda.reset_peak_memory_stats()
+    one = run(train_lib.make_step_fn(cfg, opt_cfg, train_lib.TrainConfig(n_micro=n_one, **tc)),
+              (model, one_opt, {}), f"one device, {n_one} microbatches of {Bb // n_one}x{S}")
+    one_peak = torch.cuda.max_memory_allocated()
+    one_final = {n: p.detach().clone() for n, p in model.named_parameters()}
+    del one_opt
+    want.clear()
+    flat_want.clear()
+    torch.cuda.empty_cache()
+
+    # the mesh steps from the restored (2, 2) state
+    rules = shd.make_rules("train")
+    state = train_lib.from_sharded_state(model, held, mesh, rules)
+    events: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+    mesh_fn = train_lib.make_step_fn(cfg, opt_cfg, train_lib.TrainConfig(n_micro=MESH_TRAIN_N_MICRO, **tc))
+    with _collective_timer(events), shd.activate(mesh, rules):
+        steps = run(mesh_fn, state, f"logical ({data}, {mesh.shape['model']}) mesh, {MESH_TRAIN_N_MICRO} "
+                    f"microbatch of {Bb // data}x{S} a rank")
+        torch.cuda.synchronize()
+        mesh_peak = torch.cuda.max_memory_allocated()
+        coll_ms = {k: sum(a.elapsed_time(b) for a, b in v) / MESH_TRAIN_STEPS for k, v in events.items()}
+        calls = {k: len(v) // MESH_TRAIN_STEPS for k, v in events.items()}
+        final_rel = max(_rel_l2_or_diff(state[0].params[n].full("cuda").float(), p.float())
+                        for n, p in one_final.items())
+        del one_final
+        # one more mesh step under the profiler: the device's busy ms in
+        # each part (raw kineto events, not key_averages)
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as tp:
+            t1 = time.perf_counter()
+            mesh_fn(*state, batches[MESH_TRAIN_STEPS], start + MESH_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t1) * 1e3
+    prof = _device_time(tp, prof_wall, 1)
+    under = _device_ms_under(tp, {f"mesh_train::{k}" for k in MESH_PARTS})
+    busy_ms = {k: None if under is None else under[f"mesh_train::{k}"] for k in MESH_PARTS}
+    del tp
+    print(f"profile: mesh_train {name} one mesh step wall {prof_wall:.2f} ms, device busy "
+          + ("not measured" if prof["busy_share"] is None
+             else f"{prof['device_ms']:.2f} ms ({prof['busy_share']:.1%})")
+          + "; device busy ms of: " + ", ".join(
+              f"{k} " + ("not measured" if v is None else f"{v:.2f}") for k, v in busy_ms.items())
+          + f" [{card}]")
+    del state
+    held.clear()  # the caller's (2, 2) state: the (1, 4) check needs the room
+    torch.cuda.empty_cache()
+    per_micro = one[0]["launches"][own] // n_one
+    want_launches = {n: data * MESH_TRAIN_N_MICRO * per_micro if n == own else 0 for n in fns}
+    loss_diff = [abs(a["loss"] - b["loss"]) for a, b in zip(one, steps)]
+    med, med_one = float(np.median([r["ms"] for r in steps])), float(np.median([r["ms"] for r in one]))
+    print(f"mesh_train: {name} median step {med:.2f} ms on the mesh, {med_one:.2f} ms on one device; "
+          f"device span ms a step (CUDA events): "
+          + ", ".join(f"{k} {v:.2f} ({calls[k]} calls)" for k, v in coll_ms.items())
+          + f"; peak memory {mesh_peak / 2**30:.2f} GiB on the mesh, {one_peak / 2**30:.2f} GiB one "
+          f"device; loss diffs {loss_diff} (<= {MESH_TRAIN_LOSS_ATOL:g}); final parameters worst rel "
+          f"L2 {final_rel:.3g} (bf16) [{card}]")
+    if not all(d <= MESH_TRAIN_LOSS_ATOL for d in loss_diff):
+        raise AssertionError(f"{name}: mesh losses {[r['loss'] for r in steps]} vs one device "
+                             f"{[r['loss'] for r in one]}")
+    if not all(np.isfinite(r["grad_norm"]) and np.isfinite(r["loss"]) for r in steps):
+        raise AssertionError(f"{name}: a gradient or loss of the mesh steps is not finite: {steps}")
+    if per_micro != 2 * cfg.n_layers or any(r["launches"] != want_launches for r in steps):
+        raise AssertionError(f"{name}: launches a step {[r['launches'] for r in steps]}, "
+                             f"{want_launches} expected ({per_micro} a microbatch)")
+    launches = sum(r["launches"][own] for r in steps)
+
+    # one step's gradients on (1, 4), n_micro 2, grad_shardings, bitwise
+    # the one-device gradients' slices (deterministic algorithms: the
+    # embedding's backward accumulates)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    mesh14 = make_local_mesh(*MESH_GRAD_MESH, devices=("cuda:0",) * 4)
+    torch.use_deterministic_algorithms(True)
+    try:
+        loss1, g1 = train_lib.loss_and_grads(cfg, model, batches[0], MESH_GRAD_N_MICRO)
+        params = train_lib.trainable(model)
+        gs = shd.tree_shardings(params, specs.params_logical_axes(cfg), rules, mesh14)
+        sm14 = train_lib.ShardedModel(
+            model, {n: shd.ShardedTensor.from_full(p.detach(), gs[n]) for n, p in params.items()}, mesh14, rules)
+        loss2, g2 = train_lib.sharded_grads(cfg, sm14, batches[0], MESH_GRAD_N_MICRO, grad_shardings=gs)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    diff = [n for n, g in g1.items()
+            if not all(_same_bits(g2[n].shard(*pos), g[gs[n].index(g.shape, *pos)].contiguous())
+                       for pos in gs[n].positions())]
+    finite = all(bool(torch.isfinite(t).all()) for g in g2.values() for _, t in g.distinct())
+    print(f"mesh_train: {name} one step's gradients on a logical {MESH_GRAD_MESH} mesh, n_micro "
+          f"{MESH_GRAD_N_MICRO}, grad_shardings: {len(g1) - len(diff)} of {len(g1)} parameters' tiles "
+          f"bitwise the one-device gradients' slices, all finite {finite}, loss bitwise "
+          f"{_same_bits(loss1, loss2)} [{card}]")
+    if diff or not finite or not _same_bits(loss1, loss2):
+        raise AssertionError(f"{name}: (1, 4) gradients differ from one device's in {diff[:5]}")
+    del g1, g2, sm14
+
+    # the kernel's row at a data rank's shape: layer 0's operands of the
+    # trained model on rank 0's rows
+    rows = batches[0]["tokens"][: Bb // data]
+    with torch.no_grad():
+        x0 = model.embed.to(cfg.compute_dtype)[rows]
+        tag = f"[mesh_train {cfg.name} {Bb // data}x{S}]"
+        if own == "flash_fwd_cuda":
+            q, k, v = model.layers[0].qkv(x0, model._positions(*x0.shape[:2]))
+            row = _b6_row("mesh_train", "flash_fwd" + tag, q, k, v, launches, card)
+        else:
+            from repro_torch.kernels.ssd import kernel as ssd_kernel
+
+            args = _ssd_launch_args(model.layers[0].ssd_inputs(x0), cfg.chunk)
+            passes = _b5_passes(_profile(lambda: ssd_kernel.ssd_chunked_cuda(*args, cfg.chunk)), 1)
+            row = _b5_row("mesh_train", "ssd_chunked" + tag, args, cfg.chunk, launches, passes, card)
+    model.requires_grad_(False)
+    smoke = _mesh_smoke(MESH_SMOKE_CONFIGS[name], card)
+    report = {
+        "mesh": [data, mesh.shape["model"]], "n_micro": MESH_TRAIN_N_MICRO, "steps": steps,
+        "one_device": one, "median_step_ms": med, "one_device_median_step_ms": med_one,
+        "span_ms_per_step": coll_ms, "calls_per_step": calls, "peak_memory": mesh_peak,
+        "profiled_step": {"wall_ms": prof_wall, "device_ms": prof["device_ms"],
+                          "busy_share": prof["busy_share"], "parts_busy_ms": busy_ms},
+        "one_device_peak_memory": one_peak, "loss_diffs": loss_diff, "final_params_worst_rel_l2": final_rel,
+        "launches_per_microbatch": per_micro, "grads_1x4_bitwise": True, "smoke_f32": smoke,
+        "seconds": time.perf_counter() - t0,
+    }
+    print(f"mesh_train: {name} {report['seconds']:.1f} s [{card}]")
+    return report, [row]
 
 
 def _flat_leaves(tree, prefix=()) -> list:
@@ -4851,13 +5179,16 @@ def phase_reshard(seed: int, card: str, ckpt_root: str) -> dict:
     t0 = time.perf_counter()
     kernels = {"flash_fwd_cuda": (flash_kernel, flash_kernel.flash_fwd_cuda),
                "ssd_chunked_cuda": (ssd_kernel, ssd_kernel.ssd_chunked_cuda)}
-    report = {}
+    report, rows = {}, []
     for name in LM_TRAIN_MODELS:
         own = "flash_fwd_cuda" if name.startswith("qwen2") else "ssd_chunked_cuda"
         report[name] = _reshard_model(name, seed, card, os.path.join(ckpt_root, name), kernels, own)
+        rows += report[name].pop("mesh_train_rows")
     report["seconds"] = time.perf_counter() - t0
-    print(f"reshard: phase {report['seconds']:.1f} s [{card}]")
-    return report
+    report["mesh_train_seconds"] = sum(report[n]["mesh_train"]["seconds"] for n in LM_TRAIN_MODELS)
+    print(f"reshard: phase {report['seconds']:.1f} s, of which mesh_train "
+          f"{report['mesh_train_seconds']:.1f} s [{card}]")
+    return report, rows
 
 
 def main() -> int:
@@ -4937,8 +5268,11 @@ def main() -> int:
         report["lm_train"], train_lm_rows = phase_lm_train(args.seed, card, ckpt_root)
         rows += train_lm_rows
         mark("lm_train")
-        report["reshard"] = phase_reshard(args.seed, card, ckpt_root)
+        report["reshard"], mesh_train_rows = phase_reshard(args.seed, card, ckpt_root)
+        rows += mesh_train_rows
         mark("reshard")
+        phase_s["mesh_train"] = report["reshard"]["mesh_train_seconds"]
+        phase_s["reshard"] -= phase_s["mesh_train"]
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     report["phase_s"] = phase_s

@@ -21,15 +21,26 @@ spec (:func:`tree_shardings` makes a tree of them), and a
 :class:`ShardedTensor` holds a tensor as its shards on the mesh's
 devices, cut as ``jax.device_put`` cuts an array onto a
 ``jax.sharding.NamedSharding``.  ``checkpoint.restore_resharded``
-restores training state onto them.  The activation constraints
-(``activate`` / ``constrain``) come with training on a mesh (ROADMAP
-A.7b).
+restores training state onto them, and the training executor
+(``launch.train``) moves it with :func:`all_gather` (every parameter's
+whole tensor into a compute module) and :func:`reduce_scatter` (the data
+ranks' gradients summed and cut into tiles), both plain tensor code.
+
+:func:`activate` / :func:`constrain` are the reference's activation
+constraints: model code names an activation's logical axes at the
+reference's sites, and inside ``activate(mesh, rules)`` each call
+resolves and checks its spec.  The port has no partitioner, so a
+constraint never changes a value or a layout; :func:`record_constraints`
+collects what the calls resolved, for a count of the collectives a
+partitioner would add.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import TYPE_CHECKING, Any, Sequence
+import threading
+from typing import TYPE_CHECKING, Any, Iterator, Sequence
 
 import torch
 
@@ -249,6 +260,17 @@ class ShardedTensor:
     def shard(self, di: int, mi: int) -> torch.Tensor:
         return self._shards[(di, mi)]
 
+    def distinct(self) -> list[tuple[tuple[int, int], torch.Tensor]]:
+        """``(position, shard)`` of the first position holding each region
+        of the tensor, row-major: every element once, replicas skipped."""
+        seen, out = set(), []
+        for pos, shard in self._shards.items():
+            key = tuple((s.start, s.stop) for s in self.index(*pos))
+            if key not in seen:
+                seen.add(key)
+                out.append((pos, shard))
+        return out
+
     def index(self, di: int, mi: int) -> tuple[slice, ...]:
         return self.sharding.index(self.shape, di, mi)
 
@@ -257,15 +279,119 @@ class ShardedTensor:
         """The bytes the shards hold, replicas included."""
         return sum(s.numel() * s.element_size() for s in self._shards.values())
 
-    def full(self, device) -> torch.Tensor:
+    def full(self, device=None, out: torch.Tensor | None = None) -> torch.Tensor:
         """The whole tensor on ``device``, each region copied from the
-        first position that holds it."""
-        out = torch.empty(self.shape, dtype=self.dtype, device=device)
-        done = set()
-        for pos, shard in self._shards.items():
-            idx = self.index(*pos)
-            key = tuple((s.start, s.stop) for s in idx)
-            if key not in done:
-                out[idx].copy_(shard)
-                done.add(key)
+        first position that holds it; with ``out`` (a tensor of this
+        shape), written into it in place instead."""
+        if out is None:
+            out = torch.empty(self.shape, dtype=self.dtype, device=device)
+        elif tuple(out.shape) != tuple(self.shape):
+            raise ValueError(f"out of shape {tuple(out.shape)} for a tensor of {tuple(self.shape)}")
+        with torch.no_grad():
+            for pos, shard in self.distinct():
+                out[self.index(*pos)].copy_(shard)
         return out
+
+
+# ---------------------------------------------------------------------------
+# collectives of the training executor (plain tensor code: on a logical
+# mesh every position is one device, and the "wire" is a copy)
+# ---------------------------------------------------------------------------
+
+
+def all_gather(params: dict[str, ShardedTensor], modules: dict) -> None:
+    """FSDP all-gather: write each parameter's whole tensor into the
+    parameter of that name of every compute module (``modules`` maps a
+    device to the module on it: one per distinct device of the mesh)."""
+    for module in modules.values():
+        named = dict(module.named_parameters())
+        for name, held in params.items():
+            held.full(out=named[name])
+
+
+def _mean_of(per_rank: Sequence[torch.Tensor], idx: tuple, device) -> torch.Tensor:
+    """The float32 mean of ``per_rank[r][idx]`` over the ranks, summed in
+    rank order on ``device``."""
+    first = per_rank[0][idx]
+    acc = torch.empty(first.shape, dtype=torch.float32, device=device).copy_(first)
+    for g in per_rank[1:]:
+        acc += g[idx].to(device=device, dtype=torch.float32)
+    return acc.div_(len(per_rank))
+
+
+def reduce_scatter(per_rank: Sequence[torch.Tensor], sharding: NamedSharding) -> ShardedTensor:
+    """The data ranks' tensors (one per rank, the same shape) reduced to
+    their float32 mean, summed in rank order, and cut by ``sharding``:
+    each position computes its own tile on its device, so every tile is
+    elementwise the same as cutting the whole mean."""
+    shape = per_rank[0].shape
+    shards = {
+        pos: _mean_of(per_rank, sharding.index(shape, *pos), sharding.mesh.device(*pos))
+        for pos in sharding.positions()
+    }
+    return ShardedTensor(shape, torch.float32, sharding, shards)
+
+
+# ---------------------------------------------------------------------------
+# activation constraints (models call ``constrain`` with logical axes)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Active:
+    mesh: Any = None
+    rules: Rules | None = None
+    recorder: list | None = None
+
+
+_state = threading.local()
+
+
+def _active() -> _Active:
+    if not hasattr(_state, "v"):
+        _state.v = _Active()
+    return _state.v
+
+
+@contextlib.contextmanager
+def activate(mesh, rules: Rules) -> Iterator[None]:
+    """Turn on :func:`constrain` in this thread over ``mesh`` and
+    ``rules``; the mesh and rules active before are restored on exit."""
+    st = _active()
+    prev = st.mesh, st.rules
+    st.mesh, st.rules = mesh, rules
+    try:
+        yield
+    finally:
+        st.mesh, st.rules = prev
+
+
+@contextlib.contextmanager
+def record_constraints() -> Iterator[list]:
+    """Collect, in this thread, one ``(shape, dtype, logical axes, spec)``
+    tuple per :func:`constrain` call made inside ``activate()``; yields
+    the list they are appended to.  A remat layer's backward recomputes
+    its forward and records its sites again, so one forward's sites are
+    those recorded before the backward runs."""
+    st = _active()
+    prev, st.recorder = st.recorder, []
+    try:
+        yield st.recorder
+    finally:
+        st.recorder = prev
+
+
+def constrain(x: torch.Tensor, logical_axes: Sequence[str | None]) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` by logical axes: ``x``
+    itself, always.  Inside :func:`activate` the spec is resolved by
+    :func:`spec_for`, checked against the mesh (a ``NamedSharding``) and
+    handed to the open recorder, if any; outside it nothing happens."""
+    st = _active()
+    if st.mesh is None or st.rules is None:
+        return x
+    axes = tuple(logical_axes)
+    spec = spec_for(tuple(x.shape), axes, st.rules, st.mesh)
+    NamedSharding(st.mesh, spec)
+    if st.recorder is not None:
+        st.recorder.append((tuple(x.shape), x.dtype, axes, spec))
+    return x

@@ -14,8 +14,9 @@ training shapes, prefill or one decode token for inference shapes.
 ``params_logical_axes`` and ``decode_cache_logical_axes`` give their
 logical axes (the second values of the reference's pair), keyed by the
 port's parameter names and cache keys, for ``distributed.sharding``'s
-rules.  ``make_train_step(grad_shardings=...)`` comes with training on a
-mesh (ROADMAP A.7b).
+rules.  ``make_train_step(grad_shardings=...)`` runs the train step on
+the mesh of its shardings (``launch.train.mesh_step``, over a
+``launch.train.ShardedModel``).
 
 The shape set (LM family):
 
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import interop
+from repro_torch.distributed.sharding import NamedSharding
 from repro_torch.launch import train as train_lib
 from repro_torch.models import mamba2, mla, model_api, moe, transformer, vlm, whisper, zamba
 from repro_torch.optim import adamw
@@ -126,16 +128,28 @@ def make_train_step(
     Microbatched: the global batch is split into ``n_micro`` chunks run in
     turn, each chunk's gradients cast to ``grad_dtype`` and accumulated;
     activation memory scales with B / n_micro.  The AdamW step writes the
-    trainable parameters and ``opt_state`` in place.  ``grad_shardings``
-    (a layout for the accumulator on a mesh) needs sharded training
-    state: a value other than ``None`` raises."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings needs sharded training state, which is not ported to the "
-            "torch package yet (ROADMAP A.7b)"
-        )
+    trainable parameters and ``opt_state`` in place.
+
+    ``grad_shardings`` (parameter name → ``NamedSharding``, all on one
+    mesh; a name missing, a leaf of another type or a second mesh raises
+    a ``ValueError`` naming the leaf) lays the reduced gradients out on
+    that mesh: the step is ``launch.train.mesh_step`` there, the data
+    ranks' mean gradients reduce-scattered onto those layouts and then
+    re-cut onto the parameters' for the tile update, and ``model`` is a
+    ``launch.train.ShardedModel`` on that mesh with sharded
+    ``opt_state`` (``launch.train.to_mesh``).  A ``ShardedModel`` without
+    ``grad_shardings`` takes the mesh step with the parameters' layout."""
+    mesh = _check_grad_shardings(cfg, grad_shardings) if grad_shardings is not None else None
 
     def train_step(model, opt_state, batch):
+        if isinstance(model, train_lib.ShardedModel) or mesh is not None:
+            if mesh is not None and model.mesh != mesh:
+                raise ValueError(f"grad_shardings lie on {mesh.shape}, the model on another mesh")
+            model, opt_state, _, metrics = train_lib.mesh_step(
+                cfg, opt_cfg, model, opt_state, {}, batch, n_micro,
+                grad_shardings=grad_shardings, acc_dtype=grad_dtype,
+            )
+            return model, opt_state, metrics
         loss, grads = train_lib.loss_and_grads(cfg, model, batch, n_micro, grad_dtype)
         _, opt_state, metrics = adamw.adamw_update(
             opt_cfg, train_lib.trainable(model), grads, opt_state
@@ -144,6 +158,30 @@ def make_train_step(
         return model, opt_state, metrics
 
     return train_step
+
+
+def _check_grad_shardings(cfg, grad_shardings) -> Any:
+    """The one mesh of ``grad_shardings``: a ``NamedSharding`` for every
+    parameter of ``cfg``'s model and nothing else, else a ``ValueError``
+    naming the leaf."""
+    if not isinstance(grad_shardings, dict):
+        raise ValueError(f"grad_shardings must map parameter names to NamedShardings, got "
+                         f"{type(grad_shardings).__name__}")
+    names = list(params_specs(cfg))
+    for name in names:
+        if name not in grad_shardings:
+            raise ValueError(f"grad_shardings has no entry for parameter {name!r}")
+    mesh = None
+    for name, s in grad_shardings.items():
+        if name not in names:
+            raise ValueError(f"grad_shardings names {name!r}, which is not a parameter of {cfg.name}")
+        if not isinstance(s, NamedSharding):
+            raise ValueError(f"grad_shardings[{name!r}] is a {type(s).__name__}, not a NamedSharding")
+        if mesh is None:
+            mesh = s.mesh
+        elif s.mesh != mesh:
+            raise ValueError(f"grad_shardings[{name!r}] lies on another mesh than the first leaf's")
+    return mesh
 
 
 def make_serve_step(cfg, shape: str) -> Callable:

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.models import common, transformer
 
@@ -170,7 +171,7 @@ class Mamba2Block(nn.Module):
         y = y.reshape(x.shape[:-1] + (cfg.d_inner,)).to(cd)
         y = y * F.silu(z.float()).to(cd)
         y = common.rms_norm(y, self.norm_w, cfg.norm_eps)
-        return x + y @ self.out_proj.to(cd)
+        return x + constrain(y @ self.out_proj.to(cd), ("batch", None, None))
 
     def forward(self, x: Tensor) -> tuple[Tensor, tuple[Tensor, Tensor]]:
         """Full-sequence block (B, S, D) → (x', (conv_state, ssm_state))."""
@@ -218,7 +219,7 @@ class Mamba2(nn.Module):
 
     def forward(self, tokens: Tensor) -> Tensor:
         """tokens (B, S) → logits (B, S, vocab)."""
-        x = self.embed.to(self.cfg.compute_dtype)[tokens]
+        x = constrain(self.embed.to(self.cfg.compute_dtype)[tokens], ("batch", None, None))
 
         def layer(x, block):
             return block(x)[0]
@@ -226,7 +227,7 @@ class Mamba2(nn.Module):
         layer = common.remat(self.cfg, layer)
         for block in self.layers:
             x = layer(x, block)
-        return self._head(x)
+        return constrain(self._head(x), ("batch", None, "vocab"))
 
     def init_cache(self, batch: int, max_len: int | None = None) -> dict:
         """Zero state cache (independent of max_len — SSM decode is O(1))."""
@@ -247,7 +248,7 @@ class Mamba2(nn.Module):
     def prefill(self, tokens: Tensor, max_len: int | None = None):
         """Run the full prompt (B, S): last logits (B, vocab) + the cache.
         ``max_len`` is ignored: the SSM state does not grow."""
-        x = self.embed.to(self.cfg.compute_dtype)[tokens]
+        x = constrain(self.embed.to(self.cfg.compute_dtype)[tokens], ("batch", None, None))
         convs, ssms = [], []
         for block in self.layers:
             x, (conv_st, ssm_st) = block(x)

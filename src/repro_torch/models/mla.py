@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common, moe, transformer
 
 Tensor = torch.Tensor
@@ -137,7 +138,7 @@ class MLAAttention(nn.Module):
             q, k, v, causal=True, block_k=cfg.block_k, softmax_scale=1.0 / math.sqrt(cfg.qk_dim)
         )
         o = attn.reshape(B, S, H * cfg.v_dim) @ self.wo.to(cd)
-        return x + o, (c_kv, k_rope)
+        return x + constrain(o, ("batch", None, None)), (c_kv, k_rope)
 
     def decode(self, x: Tensor, pos: int, ckv_c: Tensor, kr_c: Tensor) -> Tensor:
         """Absorbed decode of one token per row at position ``pos``: writes
@@ -238,7 +239,7 @@ class MLA(nn.Module):
 
     def forward(self, tokens: Tensor) -> tuple[Tensor, Tensor]:
         """tokens (B, S) → (logits (B, S, vocab), Σ aux / n_layers)."""
-        x = self._embed(tokens)
+        x = constrain(self._embed(tokens), ("batch", None, None))
         positions = self._positions(*tokens.shape)
 
         def layer(x, blk):
@@ -250,7 +251,7 @@ class MLA(nn.Module):
             for blk in stack:
                 x, a = layer(x, blk)
                 aux = aux + a
-        return self._head(x), aux / self.cfg.n_layers
+        return constrain(self._head(x), ("batch", None, "vocab")), aux / self.cfg.n_layers
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zero latent cache of ``max_len`` positions, length 0."""
@@ -273,7 +274,7 @@ class MLA(nn.Module):
         if M < S:
             raise ValueError(f"max_len={M} cannot hold a prompt of {S} tokens")
         cache = self.init_cache(B, M)
-        x = self._embed(tokens)
+        x = constrain(self._embed(tokens), ("batch", None, None))
         positions = self._positions(B, S)
         for name, stack in self._stacks():
             for i, blk in enumerate(stack):

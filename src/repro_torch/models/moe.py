@@ -41,6 +41,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common, transformer
 
 Tensor = torch.Tensor
@@ -188,16 +189,17 @@ def moe_block(cfg: MoEConfig, mp: MoEParams, x: Tensor) -> tuple[Tensor, Tensor]
 
     probs = torch.softmax(xg.float() @ mp.router, dim=-1)  # (G, gs, E) float32 routing
     dispatch, combine = _topk_dispatch(cfg, probs)
-    dispatch = dispatch.to(cd)
+    dispatch = constrain(dispatch.to(cd), ("batch", None, "expert", None))
 
     frac_tokens = dispatch.sum(-1).float().mean(1)  # (G, E)
     frac_probs = probs.mean(1)
     aux = cfg.n_experts * (frac_tokens * frac_probs).sum(-1).mean()
 
-    xe = torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cd))
+    xe = constrain(torch.einsum("gsec,gsd->gecd", dispatch, xg.to(cd)), ("batch", "expert", None, None))
     hg = torch.einsum("gecd,edf->gecf", xe, mp.we_gate.to(cd))
     hu = torch.einsum("gecd,edf->gecf", xe, mp.we_up.to(cd))
     ye = torch.einsum("gecf,efd->gecd", common.swiglu(hg, hu), mp.we_down.to(cd))
+    ye = constrain(ye, ("batch", "expert", None, None))
     y = torch.einsum("gsec,gecd->gsd", combine.to(cd), ye).reshape(B, S, D)
 
     if cfg.n_shared_experts:
@@ -254,19 +256,20 @@ class MoE(transformer.Transformer):
 
     def forward(self, tokens: Tensor) -> tuple[Tensor, Tensor]:
         """tokens (B, S) → (logits (B, S, vocab), mean aux)."""
-        x = self._embed(tokens)
+        x = constrain(self._embed(tokens), ("batch", None, None))
         positions = self._positions(*tokens.shape)
 
         def layer(x, block):
             q, k, v = block.qkv(x, positions)
-            return block.ffn(block.attn_out(x, transformer.causal_attention(self.cfg, q, k, v)))
+            x, aux = block.ffn(block.attn_out(x, transformer.causal_attention(self.cfg, q, k, v)))
+            return constrain(x, ("batch", None, None)), aux
 
         layer = common.remat(self.cfg, layer)
         auxs = []
         for block in self.layers:
             x, aux = layer(x, block)
             auxs.append(aux)
-        return self._head(x), torch.stack(auxs).mean()
+        return constrain(self._head(x), ("batch", None, "vocab")), torch.stack(auxs).mean()
 
 
 # each MoE parameter's logical axes, as the reference's ``moe_init`` gives

@@ -7,8 +7,12 @@ prepended to the tokens.  One layer definition covers the dense family
 through config switches: GQA kv-head count, QKV bias (qwen2), MLP
 flavour (SwiGLU or nemotron's squared ReLU), RoPE theta, tied
 embeddings.  ``remat`` and ``remat_policy`` are the reference's
-(``common.remat``); its mesh knobs (``fsdp_gather_weights``,
-``lean_softmax``, sequence sharding) come with sharded training.
+(``common.remat``).  The layers name the reference's activation
+constraints (``distributed.sharding.constrain``, at its sites), which
+change no value.  The reference's four mesh knobs
+(``fsdp_gather_weights``, ``lean_softmax``, ``seq_shard``,
+``seq_gather_entry``) only choose constraints for the dry run's
+variants, and come with the dry run on a mesh (ROADMAP A.8b).
 
 :class:`Transformer` is an ``nn.Module`` holding its config, the
 embedding, the final norm and an ``nn.ModuleList`` of
@@ -45,6 +49,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.flash import ops as flash_ops
 from repro_torch.models import common
 
@@ -192,13 +197,16 @@ class TransformerBlock(nn.Module):
         v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
+        q = constrain(q, ("batch", None, "heads", None))
+        k = constrain(k, ("batch", None, "kv_heads", None))
         return q, k, v
 
     def attn_out(self, x: Tensor, attn: Tensor) -> Tensor:
         """Output projection and its residual."""
         cfg = self.cfg
         B, S = x.shape[:2]
-        return x + attn.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(cfg.compute_dtype)
+        o = attn.reshape(B, S, cfg.n_heads * cfg.hd) @ self.wo.to(cfg.compute_dtype)
+        return x + constrain(o, ("batch", None, None))
 
     def mlp(self, x: Tensor) -> Tensor:
         """The MLP on ``ln2`` of x, and its residual."""
@@ -209,6 +217,7 @@ class TransformerBlock(nn.Module):
             z = common.swiglu(h @ self.w_gate.to(cd), h @ self.w_up.to(cd))
         else:
             z = common.ACTIVATIONS[cfg.mlp](h @ self.w_up.to(cd))
+        z = constrain(z, ("batch", None, "mlp"))
         return x + z @ self.w_down.to(cd)
 
     def finish(self, x: Tensor, attn: Tensor) -> Tensor:
@@ -260,15 +269,16 @@ class Transformer(nn.Module):
     def _forward_embedded(self, x: Tensor) -> Tensor:
         """Every position's logits of embedded inputs x (B, S, D) at
         positions 0 … S − 1 (the reference's ``trunk`` and ``unembed``)."""
+        x = constrain(x, ("batch", None, None))
         positions = self._positions(*x.shape[:2])
 
         def layer(x, block):
-            return block(x, positions)[0]
+            return constrain(block(x, positions)[0], ("batch", None, None))
 
         layer = common.remat(self.cfg, layer)
         for block in self.layers:
             x = layer(x, block)
-        return self._head(x)
+        return constrain(self._head(x), ("batch", None, "vocab"))
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zero K/V cache of ``max_len`` positions, length 0."""
@@ -293,6 +303,7 @@ class Transformer(nn.Module):
         if M < S:
             raise ValueError(f"max_len={M} cannot hold a prompt of {S} tokens")
         cache = self.init_cache(B, M)
+        x = constrain(x, ("batch", None, None))
         positions = self._positions(B, S)
         for i, block in enumerate(self.layers):
             x, k, v = block(x, positions)
@@ -314,7 +325,7 @@ class Transformer(nn.Module):
                 f"KV cache full: decode position {pos} needs max_len > {pos}, the cache has {M}"
             )
         B = tokens.shape[0]
-        x = self._embed(tokens)
+        x = constrain(self._embed(tokens), ("batch", None, None))
         positions = self._positions(B, 1, pos)
         kv_len = torch.full((B,), pos + 1, device=x.device)
         for i, block in enumerate(self.layers):

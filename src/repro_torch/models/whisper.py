@@ -44,6 +44,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common, transformer
 
 Tensor = torch.Tensor
@@ -198,6 +199,7 @@ class Whisper(nn.Module):
         T, D = frames.shape[1:]
         pe = common.sinusoidal_positions(T, D, device=self.embed.device)
         x = frames.to(device=self.embed.device, dtype=cd) + pe.to(cd)[None]  # an add in cd
+        x = constrain(x, ("batch", None, None))
         layer_fn = common.remat(self.cfg, lambda x, layer: layer(x))
         for layer in self.enc_layers:
             x = layer_fn(x, layer)
@@ -215,7 +217,7 @@ class Whisper(nn.Module):
     def forward(self, batch: dict) -> Tensor:
         """batch {frames (B, T, D), tokens (B, S)} → logits (B, S, vocab)."""
         enc = self.encode(batch["frames"])
-        x = self._decoder_input(batch["tokens"], 0)
+        x = constrain(self._decoder_input(batch["tokens"], 0), ("batch", None, None))
 
         def layer_fn(x, enc, layer):
             h = layer.ln1(x)

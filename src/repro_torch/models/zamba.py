@@ -49,6 +49,7 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import common, mamba2, transformer
 
 Tensor = torch.Tensor
@@ -135,7 +136,7 @@ class SharedAttentionBlock(nn.Module):
         xc = xc + attn.reshape(B, S, -1) @ self.wo.to(cd)
         h = common.rms_norm(xc, self.ln2, cfg.norm_eps)
         xc = xc + common.ACTIVATIONS["gelu"](h @ self.w_up.to(cd)) @ self.w_down.to(cd)
-        return x + xc @ self.proj_out.to(cd)
+        return x + constrain(xc @ self.proj_out.to(cd), ("batch", None, None))
 
     def forward(self, x: Tensor, x0: Tensor, positions: Tensor) -> tuple[Tensor, Tensor, Tensor]:
         """Full-sequence site (B, S, D) → (x', k, v)."""
@@ -174,7 +175,7 @@ class Zamba(mamba2.Mamba2):
 
     def forward(self, tokens: Tensor) -> Tensor:
         """tokens (B, S) → logits (B, S, vocab)."""
-        x0 = self._embed(tokens)
+        x0 = constrain(self._embed(tokens), ("batch", None, None))
         positions = self._positions(*tokens.shape)
         x = x0
 
@@ -186,7 +187,7 @@ class Zamba(mamba2.Mamba2):
             x, _, _ = self.shared(x, x0, positions)
             for block in self._segment(s):
                 x = layer(x, block)
-        return self._head(x)
+        return constrain(self._head(x), ("batch", None, "vocab"))
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """Zero cache of ``max_len`` K/V positions per site, length 0."""
@@ -217,7 +218,7 @@ class Zamba(mamba2.Mamba2):
         if M < S:
             raise ValueError(f"max_len={M} cannot hold a prompt of {S} tokens")
         cache = self.init_cache(B, M)
-        x0 = self._embed(tokens)
+        x0 = constrain(self._embed(tokens), ("batch", None, None))
         positions = self._positions(B, S)
         x = x0
         for s in range(self.cfg.n_segments):

@@ -11,7 +11,10 @@ and it decays the weight before the Adam step, so it is not used.
 
 ``params`` is a dict of named tensors, e.g. ``dict(model.named_parameters())``;
 :func:`adamw_update` writes the new values into those tensors (and into
-the state's) in place under ``torch.no_grad()`` and returns them.  The
+the state's) in place under ``torch.no_grad()`` and returns them; it is
+:func:`begin_step` (the step count, the clip scale, the bias
+corrections) then :func:`apply_update` on each tensor, the body a
+sharded step runs on each tile.  The
 step count is an int32 tensor on the parameters' device, so neither the
 update nor a schedule evaluated on it waits for the host.
 """
@@ -53,6 +56,53 @@ def global_norm(tree: dict[str, Tensor]) -> Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree.values()))
 
 
+@dataclasses.dataclass(frozen=True)
+class StepCoefficients:
+    """What one AdamW step applies to every tensor: the clip scale and
+    the bias corrections of the advanced step count, and the learning
+    rate, each a float32 tensor on the step count's device."""
+
+    scale: Tensor
+    b1c: Tensor
+    b2c: Tensor
+    lr: Tensor
+
+
+@torch.no_grad()
+def begin_step(
+    cfg: AdamWConfig, state: dict, gnorm: Tensor, lr_scale: Tensor | float = 1.0
+) -> StepCoefficients:
+    """Advance ``state["step"]`` in place and return the step's
+    coefficients for gradients of global norm ``gnorm`` (clipped by
+    ``clip_norm / max(gnorm, 1e-12)`` when ``gnorm > clip_norm``)."""
+    state["step"] += 1
+    step = state["step"].float()
+    scale = torch.where(
+        gnorm > cfg.clip_norm, cfg.clip_norm / torch.clamp(gnorm, min=1e-12), 1.0
+    )
+    b1c = 1.0 - torch.pow(cfg.b1, step)
+    b2c = 1.0 - torch.pow(cfg.b2, step)
+    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=step.device)
+    return StepCoefficients(scale, b1c, b2c, lr)
+
+
+@torch.no_grad()
+def apply_update(
+    cfg: AdamWConfig, c: StepCoefficients, p: Tensor, g: Tensor, m: Tensor, v: Tensor
+) -> None:
+    """The step on one tensor (a whole parameter or a tile of one): ``p``,
+    ``m`` and ``v`` written in place from the gradient ``g``."""
+    g = g.float() * c.scale
+    m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
+    v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
+    mhat = m32 / c.b1c
+    vhat = v32 / c.b2c
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
+    p.copy_(p.float() - c.lr * delta)
+    m.copy_(m32)
+    v.copy_(v32)
+
+
 @torch.no_grad()
 def adamw_update(
     cfg: AdamWConfig,
@@ -62,24 +112,8 @@ def adamw_update(
     lr_scale: Tensor | float = 1.0,
 ) -> tuple[dict[str, Tensor], dict, dict[str, Tensor]]:
     """One AdamW step, in place.  Returns (params, state, metrics)."""
-    state["step"] += 1
-    step = state["step"].float()
     gnorm = global_norm(grads)
-    scale = torch.where(
-        gnorm > cfg.clip_norm, cfg.clip_norm / torch.clamp(gnorm, min=1e-12), 1.0
-    )
-    b1c = 1.0 - torch.pow(cfg.b1, step)
-    b2c = 1.0 - torch.pow(cfg.b2, step)
-    lr = cfg.lr * torch.as_tensor(lr_scale, dtype=torch.float32, device=step.device)
+    c = begin_step(cfg, state, gnorm, lr_scale)
     for name, p in params.items():
-        g = grads[name].float() * scale
-        m, v = state["m"][name], state["v"][name]
-        m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
-        v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
-        mhat = m32 / b1c
-        vhat = v32 / b2c
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.float()
-        p.copy_(p.float() - lr * delta)
-        m.copy_(m32)
-        v.copy_(v32)
-    return params, state, {"grad_norm": gnorm, "clip_scale": scale}
+        apply_update(cfg, c, p, grads[name], state["m"][name], state["v"][name])
+    return params, state, {"grad_norm": gnorm, "clip_scale": c.scale}

@@ -6,11 +6,15 @@ and the train loop with its kill-safe resume.
 The reference's parameters (``init_params``) are carried into the port
 by the ``interop`` loaders, and so are its gradients, which have the
 parameters' tree: both modules are then compared by parameter name.
-The reference's own ``train_loop`` cannot run under this JAX (its
-``constrain`` refuses a spec on the explicit axes ``make_local_mesh``
-makes), so the loop is held against the reference's ``make_step_fn``,
-jitted and run outside ``activate()``, on the reference's parameters
-and its ``batch_at_step`` batches.  ``global_norm`` sums in another
+The reference's own ``train_loop`` does not run in this process under
+this JAX (its ``constrain`` refuses a spec on the explicit axes
+``make_local_mesh`` makes; only a mesh of automatic axes, built in a
+subprocess as ``test_torch_mesh_train.py`` builds it, takes it), so the
+loop is held against the reference's ``make_step_fn``, jitted and run
+outside ``activate()``, on the reference's parameters and its
+``batch_at_step`` batches.  Training on a mesh larger than 1 × 1 is
+``test_torch_mesh_train.py``'s; here only its refusal of a batch the
+data ranks do not divide.  ``global_norm`` sums in another
 order in the two packages, so the parameters after 4 steps agree to
 1e-4, not bitwise; inside the port the restart contract is bitwise.
 """
@@ -469,10 +473,13 @@ def test_train_loop_matches_step_fn_and_lowers_loss(tmp_path):
 
 
 def test_train_loop_on_a_larger_mesh_raises(tmp_path):
+    """A mesh of 3 data ranks cannot split a batch of 4 rows: the loop
+    raises before its first step and writes no checkpoint."""
     cfg = t_configs.get_smoke_config("qwen2-1.5b")
-    mesh = t_mesh.make_local_mesh(1, 2, devices=("cpu",) * 2)
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        t_train.train_loop(cfg, t_train.TrainConfig(steps=1), str(tmp_path), mesh=mesh, device="cpu")
+    mesh = t_mesh.make_local_mesh(3, 1, devices=("cpu",) * 3)
+    with pytest.raises(ValueError, match="data"):
+        t_train.train_loop(cfg, t_train.TrainConfig(steps=1, batch=4), str(tmp_path), mesh=mesh,
+                           device="cpu")
     assert not os.path.exists(tmp_path / "step_1")
 
 

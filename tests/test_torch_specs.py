@@ -130,9 +130,19 @@ def test_make_train_step_microbatched_equals_whole(arch):
 
 
 def test_make_train_step_refuses_grad_shardings():
+    """``grad_shardings`` that lacks a trainable parameter's name raises a
+    ``ValueError`` naming it."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_local_mesh
+
     cfg = t_configs.get_smoke_config("qwen2-1.5b")
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        t_specs.make_train_step(cfg, AdamWConfig(), n_micro=2, grad_shardings={})
+    mesh = make_local_mesh(1, 2, devices=("cpu",) * 2)
+    specs = t_specs.params_specs(cfg)
+    gs = {n: shd.NamedSharding(mesh, shd.PartitionSpec(*(None,) * p.dim())) for n, p in specs.items()}
+    missing = "layers.1.wk"
+    del gs[missing]
+    with pytest.raises(ValueError, match=r"layers\.1\.wk"):
+        t_specs.make_train_step(cfg, AdamWConfig(), n_micro=2, grad_shardings=gs)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-1.5b", "mamba2-370m", "whisper-tiny", "internvl2-2b"])
