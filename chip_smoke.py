@@ -401,6 +401,18 @@ Phases, each reported on lines of its own:
              events) and busy ms (the profiled step's raw events) of
              the all-gathers, reduce-scatters and tile AdamW, the peak
              memory, the final parameters' worst rel L2 (bf16).
+19. dryrun_mesh — the dry run on the reference's production meshes
+             (``launch/dryrun.py --mesh single|multi``), counted on
+             ``meta`` with no card: qwen2-1.5b and mamba2-370m
+             ``train_4k`` on 16 x 16 and qwen2-1.5b ``prefill_32k`` on 2 x
+             16 x 16, each cell in a process of its own (CUDA hidden
+             from it), the three at once.  One line a cell: the compute,
+             memory and collective terms (the collective priced on
+             NVLink inside an 8-card node, NDR InfiniBand across), the
+             argument + temp GB of one card, whether they fit in its 80
+             GB, and the seconds the count took.  Gated: status ``ok``,
+             finite positive compute and memory terms, a collective term
+             above 0.
 
 The last line is ``{"ok": true, "device": {...}}``; any failure raises
 and exits non-zero.  Without CUDA, or outside a checkout of the repo, it
@@ -4508,6 +4520,10 @@ def _restart_check(seed, card) -> dict:
     return res
 
 
+# the mesh dry run's cells: (arch, shape, --mesh)
+DRYRUN_MESH_CELLS = (("qwen2-1.5b", "train_4k", "single"), ("mamba2-370m", "train_4k", "single"),
+                     ("qwen2-1.5b", "prefill_32k", "multi"))
+DRYRUN_MESH_TIMEOUT_S = 300
 ROOFLINE_REPS = 5  # timed steps of each counted step, after one warm-up
 # the three steps the roofline phase counts: (tag, arch, mode) at LM_TRAIN_SHAPE
 ROOFLINE_STEPS = (("qwen2-1.5b train", "qwen2-1.5b", "train"), ("mamba2-370m train", "mamba2-370m", "train"),
@@ -4636,6 +4652,58 @@ def phase_roofline(seed: int, card: str) -> dict:
     report = {tag: _roofline_step(tag, arch, mode, seed, card) for tag, arch, mode in ROOFLINE_STEPS}
     report["seconds"] = time.perf_counter() - t0
     print(f"roofline: phase {report['seconds']:.1f} s [{card}]")
+    return report
+
+
+def phase_dryrun_mesh(card: str) -> dict:
+    """The mesh dry run: ``DRYRUN_MESH_CELLS`` counted on ``meta`` by
+    ``launch.dryrun``, each in a process of its own with no CUDA device
+    visible, all started together; one line a cell, gated on its terms."""
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="dryrun_mesh_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"), CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape, "--mesh", mesh, "--out", out_dir],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for arch, shape, mesh in DRYRUN_MESH_CELLS]
+    report = {}
+    try:
+        logs = [p.communicate(timeout=DRYRUN_MESH_TIMEOUT_S)[0] for p in procs]
+        for (arch, shape, mesh), p, log in zip(DRYRUN_MESH_CELLS, procs, logs):
+            if p.returncode:
+                raise AssertionError(f"dryrun_mesh: {arch} {shape} --mesh {mesh} failed:\n{log[-3000:]}")
+            name = dryrun.MESH_NAMES[mesh]
+            with open(dryrun._path(out_dir, arch, shape, name, "baseline")) as fh:
+                rec = json.load(fh)
+            rl, mem = rec["roofline"], rec["memory_analysis"]
+            terms = (rl["compute_s"], rl["memory_s"])
+            if rec["status"] != "ok" or not all(np.isfinite(t) and t > 0 for t in terms) \
+                    or not rl["collective_s"] > 0:
+                raise AssertionError(f"dryrun_mesh: {arch} {shape} {name}: status {rec['status']}, compute "
+                                     f"{rl['compute_s']} s, memory {rl['memory_s']} s, collective "
+                                     f"{rl['collective_s']} s")
+            gb = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 1e9
+            print(f"dryrun_mesh: {arch} {shape} {name} ({rec['n_chips']} cards, {rec['per_device_batch']} "
+                  f"rows a card): compute {rl['compute_s']:.4g} s, memory {rl['memory_s']:.4g} s, "
+                  f"collective {rl['collective_s']:.4g} s ({rl['bottleneck']}; "
+                  + ", ".join(f"{ax} {b / 1e9:.3f} GB" for ax, b in rl["collective_bytes_by_axis"].items())
+                  + f"), arguments + temp {mem['argument_size_in_bytes'] / 1e9:.3f} + "
+                  f"{mem['temp_size_in_bytes'] / 1e9:.3f} = {gb:.3f} GB, fits {rec['fits']}, counted in "
+                  f"{rec['trace_s']:.1f} s on the host [{card}]")
+            report[f"{arch} {shape} {name}"] = {
+                "roofline": rl, "memory_analysis": mem, "fits": rec["fits"], "trace_s": rec["trace_s"],
+                "local_config": rec["local_config"], "per_device_batch": rec["per_device_batch"],
+            }
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    report["seconds"] = time.perf_counter() - t0
+    print(f"dryrun_mesh: phase {report['seconds']:.1f} s [{card}]")
     return report
 
 
@@ -5275,6 +5343,8 @@ def main() -> int:
         phase_s["reshard"] -= phase_s["mesh_train"]
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+    report["dryrun_mesh"] = phase_dryrun_mesh(card)
+    mark("dryrun_mesh")
     report["phase_s"] = phase_s
     print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items())
           + f"; all {sum(phase_s.values()):.1f} s [{card}]")

@@ -1255,7 +1255,7 @@ class QueryEngine:
             if hit is not None:
                 self._mesh_arenas.move_to_end(key)
                 return hit[1]
-        d, m = mesh.shape["data"], mesh.shape["model"]
+        d, m = mesh.data_ranks, mesh.shape["model"]
         if pool.shards != m:
             raise ValueError(f"a pool of {pool.shards} tiles on a mesh of {m} model shards")
         s = pool.shard_rows
@@ -1292,7 +1292,7 @@ class QueryEngine:
         on the CPU rounds differently from the same transform in a batch
         (ROADMAP C.14).  cuFFT shows no such batch dependence, so a card
         shard never pays for the companion."""
-        d, m = mesh.shape["data"], mesh.shape["model"]
+        d, m = mesh.data_ranks, mesh.shape["model"]
         b = int(x.shape[0])
         bl = -(-b // d)
         if d * bl > b:

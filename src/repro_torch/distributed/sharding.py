@@ -179,7 +179,9 @@ class NamedSharding:
     by a mesh axis (or a tuple of them) is cut evenly over that axis, in
     row-major mesh order (the first axis of a tuple most major); a dim
     named ``None`` is replicated.  Mesh positions are ``(di, mi)``, the
-    ``(data, model)`` coordinates of ``mesh.device(di, mi)``."""
+    grid position of ``mesh.device(di, mi)`` (``mesh.coords`` gives its
+    coordinates by axis: ``(data, model)``, or ``(pod, data, model)`` on
+    a multi-pod mesh)."""
 
     mesh: LocalMesh
     spec: PartitionSpec
@@ -195,7 +197,7 @@ class NamedSharding:
 
     def positions(self) -> list[tuple[int, int]]:
         """Every mesh position, row-major."""
-        d, m = self.mesh.shape["data"], self.mesh.shape["model"]
+        d, m = self.mesh.data_ranks, self.mesh.shape["model"]
         return [(di, mi) for di in range(d) for mi in range(m)]
 
     def index(self, shape: Sequence[int], di: int, mi: int) -> tuple[slice, ...]:
@@ -204,7 +206,7 @@ class NamedSharding:
         raises where a mesh axis does not divide its dim (nothing pads)."""
         if len(shape) != len(self.spec):
             raise ValueError(f"{self.spec!r} has {len(self.spec)} dims, the tensor {tuple(shape)}")
-        coord = dict(zip(self.mesh.shape, (di, mi)))
+        coord = self.mesh.coords(di, mi)
         out = []
         for dim, part in zip(shape, self.spec):
             n, c = 1, 0

@@ -11,7 +11,8 @@ Everything is a function: importing this module touches no CUDA state.
 
   single pod : (data=16, model=16)            — 256 cards
   multi-pod  : (pod=2, data=16, model=16)     — 512 cards across 2 pods,
-               laid out as (data=32, model=16)
+               laid out as a (32, 16) grid whose rows split into the
+               two pods (``LocalMesh.pods``)
 """
 
 from __future__ import annotations
@@ -25,13 +26,32 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class LocalMesh:
     """A ``(data, model)`` grid of devices: ``devices[di][mi]`` holds the
-    ``di``-th stream-row shard and the ``mi``-th arena tile."""
+    ``di``-th stream-row shard and the ``mi``-th arena tile.  With
+    ``pods`` > 1 the grid's rows split into that many pods of equal size,
+    and the mesh's axes are ``(pod, data, model)``, row-major (a row
+    ``di`` is pod ``di // data``, data index ``di % data``)."""
 
     devices: tuple[tuple[torch.device, ...], ...]
+    pods: int = 1
 
     @property
     def shape(self) -> dict[str, int]:
-        return {"data": len(self.devices), "model": len(self.devices[0])}
+        rows, cols = len(self.devices), len(self.devices[0])
+        if self.pods == 1:
+            return {"data": rows, "model": cols}
+        return {"pod": self.pods, "data": rows // self.pods, "model": cols}
+
+    @property
+    def data_ranks(self) -> int:
+        """The data-parallel ranks: the grid's rows, every pod's data
+        ranks on a multi-pod mesh (``shape["data"]`` is one pod's)."""
+        return len(self.devices)
+
+    def coords(self, di: int, mi: int) -> dict[str, int]:
+        """The mesh coordinates of grid position ``(di, mi)``, by axis."""
+        data = len(self.devices) // self.pods
+        coord = {"data": di % data, "model": mi}
+        return {"pod": di // data, **coord} if self.pods > 1 else coord
 
     @property
     def size(self) -> int:
@@ -46,28 +66,39 @@ def _visible_cuda() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(n)]
 
 
-def _grid(devices: Sequence[torch.device], data: int, model: int) -> LocalMesh:
+def _grid(devices: Sequence[torch.device], data: int, model: int, pods: int = 1) -> LocalMesh:
     return LocalMesh(
-        tuple(tuple(devices[di * model + mi] for mi in range(model)) for di in range(data))
+        tuple(tuple(devices[di * model + mi] for mi in range(model)) for di in range(data)), pods
     )
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> LocalMesh:
-    """The production layout over the first 256 (512) visible CUDA
-    devices, raising when fewer are visible: (data=16, model=16), and
-    for ``multi_pod`` the reference's (pod=2, data=16, model=16) with the
-    pod axis folded into data — (32, 16) — since pods only add data
-    parallelism and the model axis never crosses a pod."""
+def make_production_mesh(
+    *, multi_pod: bool = False, devices: Sequence[str | torch.device] | None = None
+) -> LocalMesh:
+    """The production layout: (data=16, model=16), and for ``multi_pod``
+    the reference's (pod=2, data=16, model=16), laid out as a (32, 16)
+    grid whose rows split into the two pods (pods only add data
+    parallelism, and the model axis never crosses a pod).  ``devices=None``
+    takes the first 256 (512) visible CUDA devices and raises when fewer
+    are visible; an explicit sequence holds exactly that many, row-major,
+    and may repeat a device (the dry run lays the mesh over ``("meta",) *
+    256``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     n = 1
     for s in shape:
         n *= s
-    devices = _visible_cuda()
-    if len(devices) < n:
-        raise RuntimeError(
-            f"mesh {shape} needs {n} devices, found {len(devices)} CUDA devices"
-        )
-    return _grid(devices[:n], n // shape[-1], shape[-1])
+    if devices is None:
+        found = _visible_cuda()
+        if len(found) < n:
+            raise RuntimeError(
+                f"mesh {shape} needs {n} devices, found {len(found)} CUDA devices"
+            )
+        devs = found[:n]
+    else:
+        devs = [torch.device(d) for d in devices]
+        if len(devs) != n:
+            raise ValueError(f"mesh {shape} needs exactly {n} devices, got {len(devs)}")
+    return _grid(devs, n // shape[-1], shape[-1], 2 if multi_pod else 1)
 
 
 def make_local_mesh(

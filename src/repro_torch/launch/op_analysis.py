@@ -79,6 +79,7 @@ class Analysis:
     hbm_bytes: float = 0.0
     collective_bytes: dict = dataclasses.field(default_factory=dict)
     collective_counts: dict = dataclasses.field(default_factory=dict)
+    collective_bytes_by_axis: dict = dataclasses.field(default_factory=dict)
     op_flops: dict = dataclasses.field(default_factory=dict)
     op_bytes: dict = dataclasses.field(default_factory=dict)
     op_counts: dict = dataclasses.field(default_factory=dict)

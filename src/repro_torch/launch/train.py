@@ -215,7 +215,7 @@ def check_rows(batch_rows: int, mesh, n_micro: int) -> None:
     """Raise a ``ValueError`` unless ``batch_rows`` splits evenly over the
     mesh's data ranks and then into ``n_micro`` microbatches (the
     reference would de-shard such a batch silently)."""
-    data = mesh.shape["data"]
+    data = mesh.data_ranks
     if batch_rows % (data * n_micro):
         raise ValueError(
             f"a batch of {batch_rows} rows does not split over the data axis of the "
@@ -233,7 +233,7 @@ def rank_rows(batch: dict, mesh, rules: shd.Rules, n_micro: int) -> list[dict]:
         axes = ("batch",) + (None,) * (x.dim() - 1)
         shardings[k] = shd.NamedSharding(mesh, shd.spec_for(x.shape, axes, rules, mesh))
     return [{k: x[shardings[k].index(x.shape, di, 0)].to(mesh.device(di, 0)) for k, x in batch.items()}
-            for di in range(mesh.shape["data"])]
+            for di in range(mesh.data_ranks)]
 
 
 def sharded_grads(

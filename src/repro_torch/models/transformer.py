@@ -9,10 +9,14 @@ flavour (SwiGLU or nemotron's squared ReLU), RoPE theta, tied
 embeddings.  ``remat`` and ``remat_policy`` are the reference's
 (``common.remat``).  The layers name the reference's activation
 constraints (``distributed.sharding.constrain``, at its sites), which
-change no value.  The reference's four mesh knobs
-(``fsdp_gather_weights``, ``lean_softmax``, ``seq_shard``,
-``seq_gather_entry``) only choose constraints for the dry run's
-variants, and come with the dry run on a mesh (ROADMAP A.8b).
+change no value.  Of the reference's four mesh knobs only
+``seq_shard`` is here: it names the residual between layers
+sequence-sharded over ``model``, which the dry run's collective plan
+prices.  The dry run's variant keys of the other three parse and change
+nothing (``launch.dryrun.NO_OP_KEYS``): ``lean_softmax`` is read by no
+model code in the reference either, and ``fsdp_gather_weights`` and
+``seq_gather_entry`` leave the reference's own collective bytes
+unchanged or their sum within 1 % (``tests/test_torch_dryrun_mesh.py``).
 
 :class:`Transformer` is an ``nn.Module`` holding its config, the
 embedding, the final norm and an ``nn.ModuleList`` of
@@ -85,6 +89,7 @@ class TransformerConfig:
     block_k: int = 512
     remat_policy: str = "full"  # 'full' | 'dots' | 'none' (common.remat)
     attn_impl: str = "kernel"  # 'kernel' (flash ops) | 'blockwise' (plain)
+    seq_shard: bool = False  # the residual between layers sequence-sharded over 'model'
 
     @property
     def hd(self) -> int:
@@ -271,9 +276,10 @@ class Transformer(nn.Module):
         positions 0 … S − 1 (the reference's ``trunk`` and ``unembed``)."""
         x = constrain(x, ("batch", None, None))
         positions = self._positions(*x.shape[:2])
+        seq_axis = "seq_model" if self.cfg.seq_shard else None
 
         def layer(x, block):
-            return constrain(block(x, positions)[0], ("batch", None, None))
+            return constrain(block(x, positions)[0], ("batch", seq_axis, None))
 
         layer = common.remat(self.cfg, layer)
         for block in self.layers:

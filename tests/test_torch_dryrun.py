@@ -2,7 +2,9 @@
 device: ``run_cell`` on the smoke config of each LM family over the
 four shapes (``specs.SHAPES`` patched small), its record's keys, the
 skip reasons against the reference's ``shape_applicable``, the
-parameter and model-FLOP counts, and the mesh options raising."""
+parameter and model-FLOP counts, the mesh options' records and the
+mesh variant keys (``tests/test_torch_dryrun_mesh.py`` holds the mesh
+counts to the reference's)."""
 
 import json
 import os
@@ -17,6 +19,7 @@ from repro import configs as r_configs  # noqa: E402
 from repro.launch import specs as r_specs  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import dryrun, specs  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.models import model_api  # noqa: E402
 
 # one arch of each family
@@ -86,25 +89,99 @@ def test_cell_counts_its_kernels(small, tmp_path):
     assert cfg.n_layers >= 1
 
 
+MESH_KEYS = OK_KEYS | {"n_micro", "mesh_shape", "local_config", "per_device_batch"}
+
+
 @pytest.mark.parametrize("mesh", ["single", "multi", "both"])
-def test_mesh_options_raise(mesh, small, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        dryrun.run_cell("qwen2-1.5b", "train_4k", mesh=mesh, out_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A.8b"):
-        dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k", "--mesh", mesh, "--out", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+def test_mesh_options_write_the_references_records(mesh, small, tmp_path, capsys):
+    """``--mesh single|multi|both`` count on the 16 × 16 and 2 × 16 × 16
+    meshes (of ``meta`` devices) and write the reference's record names;
+    ``--table`` prints each mesh's table with its collective term."""
+    dryrun.main(["--arch", "qwen2-1.5b", "--shape", "train_4k", "--mesh", mesh, "--out", str(tmp_path)])
+    names = {"single": ["pod16x16"], "multi": ["pod2x16x16"], "both": ["pod16x16", "pod2x16x16"]}[mesh]
+    assert sorted(os.listdir(tmp_path)) == sorted(f"qwen2-1.5b__train_4k__{n}__baseline.json" for n in names)
+    for name in names:
+        with open(tmp_path / f"qwen2-1.5b__train_4k__{name}__baseline.json") as fh:
+            rec = json.load(fh)
+        multi = name == "pod2x16x16"
+        assert rec["status"] == "ok" and set(rec) == MESH_KEYS and rec["mesh"] == name
+        assert rec["n_chips"] == (512 if multi else 256)
+        assert rec["mesh_shape"] == ({"pod": 2} if multi else {}) | {"data": 16, "model": 16}
+        rl = rec["roofline"]
+        assert rl["bottleneck_s"] == max(rl["compute_s"], rl["memory_s"], rl["collective_s"])
+        assert rl["collective_s"] > 0 and rl["compute_s"] > 0 and rl["memory_s"] > 0
+        assert set(rl["collective_bytes_by_axis"]) == {"data", "model"} | ({"pod"} if multi else set())
+        # 4 rows: (pod, data) keeps only what divides them
+        assert rec["per_device_batch"] == (2 if multi else 4) and rec["n_micro"] == 1
+        # qwen2-smoke's 4 heads stay whole on 16; its MLP and vocab are cut
+        assert rec["local_config"] == {"d_ff": 16, "vocab": 32} and rec["fits"]
+    dryrun.main(["--table", "--mesh", mesh, "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert out.count("| qwen2-1.5b | ") == len(names) and out.count(" / x ") == len(names)
 
 
-@pytest.mark.parametrize("key", ["gshard", "wgather", "lean", "seqshard", "seqgather"])
-def test_mesh_variants_raise(key, small, tmp_path):
-    with pytest.raises(NotImplementedError, match="A.7b"):
-        dryrun.run_cell("qwen2-1.5b", "train_4k", variant=f"{key}=1", out_dir=str(tmp_path))
+def _variant_cell(small_dir, variant):
+    mesh = make_local_mesh(2, 2, devices=("meta",) * 4)
+    return dryrun.run_cell("granite-8b", "train_4k", mesh, variant="accum=2," + variant, out_dir=small_dir)
+
+
+# each mesh variant key: its config override or extra (None: it parses and
+# changes nothing), and what it does to the counts against the baseline on
+# a (2, 2) mesh
+VARIANTS = {
+    "gshard": ("gshard", True),
+    "wgather": None,
+    "lean": None,
+    "seqshard": ("seq_shard", True),
+    "seqgather": None,
+}
+
+
+COUNTS = ("flops", "hbm_bytes", "collective_bytes_by_kind")
+
+
+@pytest.mark.parametrize("key", list(VARIANTS))
+def test_mesh_variant_keys(key, small, tmp_path):
+    """Each mesh variant key parses as the reference's does and counts:
+    ``gshard`` reduces the gradients once a microbatch and sums them on
+    the tiles, ``seqshard`` adds a reduce-scatter and an all-gather over
+    ``model`` a layer boundary; ``wgather``, ``lean`` and ``seqgather``
+    (with ``seqshard``) change no count (``dryrun.NO_OP_KEYS``)."""
+    smoke = configs.get_smoke_config("granite-8b")
+    cfg, extras = dryrun._apply_variant(smoke, f"{key}=1")
+    if VARIANTS[key] is None:
+        assert key in dryrun.NO_OP_KEYS and cfg == smoke
+        assert extras == dryrun._apply_variant(smoke, "baseline")[1]
+    else:
+        field, value = VARIANTS[key]
+        assert (extras[field] if field in extras else getattr(cfg, field)) == value
+    base = _variant_cell(str(tmp_path), "remat=full")
+    variant = f"{key}=1" if key != "seqgather" else "seqshard=1,seqgather=1"
+    rec = _variant_cell(str(tmp_path), variant)
+    b, r = base["roofline"], rec["roofline"]
+    assert rec["n_micro"] == base["n_micro"] == 2
+    kinds_b, kinds_r = b["collective_counts"], r["collective_counts"]
+    if key == "gshard":
+        # the microbatches' gradients add up on the tiles, not whole
+        assert r["flops"] < b["flops"] and r["collective_bytes"] > b["collective_bytes"]
+        assert kinds_r["reduce-scatter"] == 2 * kinds_b["reduce-scatter"]
+        assert rec["memory_analysis"]["temp_size_in_bytes"] <= base["memory_analysis"]["temp_size_in_bytes"]
+    elif key in ("seqshard", "seqgather"):
+        assert r["flops"] == b["flops"] and r["collective_bytes"] > b["collective_bytes"]
+        layers = configs.get_smoke_config("granite-8b").n_layers
+        # a layer boundary a forward, again in its recompute and its backward
+        assert kinds_r["reduce-scatter"] - kinds_b.get("reduce-scatter", 0) == 2 * 3 * layers
+        if key == "seqgather":
+            seq = _variant_cell(str(tmp_path), "seqshard=1")["roofline"]
+            assert {k: r[k] for k in COUNTS} == {k: seq[k] for k in COUNTS}
+    else:
+        assert {k: r[k] for k in COUNTS} == {k: b[k] for k in COUNTS}
 
 
 def test_variants_and_cli(small, tmp_path, capsys):
     cfg, extras = dryrun._apply_variant(configs.get_smoke_config("arctic-480b"), "block_k=64,capacity=2,group=16,gdtype=bf16")
     assert (cfg.block_k, cfg.capacity_factor, cfg.router_group) == (64, 2.0, 16)
-    assert extras == {"accum": None, "gdtype": torch.bfloat16}
+    assert extras == {"accum": None, "gshard": False, "gdtype": torch.bfloat16}
     with pytest.raises(ValueError, match="unknown variant"):
         dryrun._apply_variant(cfg, "nope=1")
     dryrun.main(["--arch", "mamba2-370m", "--out", str(tmp_path)])

@@ -107,6 +107,26 @@ def test_stream_volumes_bitwise(shape):
     assert _bitwise(ref, got)
 
 
+def test_multi_pod_mesh_dispatches_over_every_grid_row(monkeypatch):
+    """A multi-pod mesh's data ranks are its grid rows
+    (``LocalMesh.data_ranks``, every pod's): the dispatch spreads a batch
+    over both pods' rows, bitwise the single-device result."""
+    mesh = LocalMesh(cpu_mesh(4, 2).devices, pods=2)
+    assert mesh.shape == {"pod": 2, "data": 2, "model": 2} and mesh.data_ranks == 4
+    rows, device = set(), LocalMesh.device
+    monkeypatch.setattr(LocalMesh, "device", lambda self, di, mi: rows.add(di) or device(self, di, mi))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)  # as test_stream_volumes_bitwise's (8, 1) case
+    try:
+        eng = _engine()
+        reqs = _requests(eng)
+        ref = eng.query_stream_many(reqs, dedup=True)
+        got = eng.query_stream_many(reqs, dedup=True, mesh=mesh)
+    finally:
+        torch.set_num_threads(threads)
+    assert _bitwise(ref, got) and rows == {0, 1, 2, 3}
+
+
 def test_stream_fused_topk_bitwise():
     eng = _engine()
     reqs = _requests(eng)

@@ -4,6 +4,8 @@ the one-device step and the JAX reference, on smoke configs in float32
 on the CPU.
 
 * ``constrain`` returns its input; ``activate`` nests and is per thread.
+* The mesh knob ``seq_shard`` constrains at the reference's sites, per
+  call, for the dense and VLM families.
 * Every family names the reference's constraints: the (shape, logical
   axes, spec) of every ``constrain`` call in one ``loss_fn`` on a (2, 2)
   mesh, counted per call, equal the reference's, recorded by patching the
@@ -179,11 +181,12 @@ def _unrolled_scan(f, init, xs=None, length=None, reverse=False, **_):
     return carry, jax.tree.map(lambda *a: jnp.stack(a), *ys)
 
 
-def _reference_sites(arch, batch) -> tuple[collections.Counter, dict]:
+def _reference_sites(arch, batch, **knobs) -> tuple[collections.Counter, dict]:
     """The reference's (shape, axes, spec) per ``constrain`` call over one
     trace of ``loss_fn`` without remat and with ``lax.scan`` unrolled, and
-    its parameters (numpy), ``constrain`` patched in every model module."""
-    rcfg = r_configs.get_smoke_config(arch, remat=False)
+    its parameters (numpy), ``constrain`` patched in every model module;
+    ``knobs`` override the smoke config."""
+    rcfg = r_configs.get_smoke_config(arch, remat=False, **knobs)
     rmod = r_model_api.get_model(rcfg)
     params, _ = rmod.init_params(rcfg, jax.random.PRNGKey(0))
     rules = r_shd.make_rules("train")
@@ -208,8 +211,8 @@ def _reference_sites(arch, batch) -> tuple[collections.Counter, dict]:
     return calls, jax.tree.map(np.asarray, params)
 
 
-def _port_sites(arch, params, batch) -> collections.Counter:
-    cfg = t_configs.get_smoke_config(arch)
+def _port_sites(arch, params, batch, **knobs) -> collections.Counter:
+    cfg = t_configs.get_smoke_config(arch, **knobs)
     model = LOADERS[arch](params, cfg, device="cpu")
     with shd.activate(_mesh(2, 2), shd.make_rules("train")), shd.record_constraints() as rec:
         model_api.get_model(cfg).loss_fn(cfg, model, {k: torch.from_numpy(v) for k, v in batch.items()})
@@ -225,6 +228,28 @@ def test_every_family_constrains_at_the_references_sites(arch):
     want, params = _reference_sites(arch, batch)
     got = _port_sites(arch, params, batch)
     assert want and got == want, (sorted((want - got).items(), key=str), sorted((got - want).items(), key=str))
+
+
+# the reference's mesh knobs that the port's config carries, as the dry
+# run's variant keys set them
+KNOBS = {
+    "seqshard": {"seq_shard": True},
+}
+
+
+@pytest.mark.parametrize("knob", list(KNOBS))
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "internvl2-2b"])
+def test_mesh_knobs_constrain_at_the_references_sites(arch, knob):
+    """Under each mesh knob the dense and VLM families' ``constrain``
+    calls are the reference's, per call: the residual sequence-sharded
+    between layers (``seq_shard``)."""
+    knobs = KNOBS[knob]
+    batch = _site_batch(t_configs.get_smoke_config(arch))
+    want, params = _reference_sites(arch, batch, **knobs)
+    got = _port_sites(arch, params, batch, **knobs)
+    assert want and got == want, (sorted((want - got).items(), key=str), sorted((got - want).items(), key=str))
+    plain, _ = _reference_sites(arch, batch)
+    assert want != plain  # the knob placed constraints of its own
 
 
 # ----------------------------------------------- the step against one device
