@@ -1,0 +1,9 @@
+"""device_idle_share (device): the share of the traced window in which no
+kernel, copy or memset ran on the card (the union of the profiler's
+device intervals)."""
+
+
+def read(run):
+    if run.trace is None or not run.trace.device:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s() / run.trace.window_s)
