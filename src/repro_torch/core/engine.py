@@ -53,6 +53,7 @@ from typing import TYPE_CHECKING, Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import fidelity as fidelity_mod
 from repro_torch.core import optics, pseudo_negative, spectral_conv
 from repro_torch.kernels.stmul import ops as stmul_ops
@@ -714,7 +715,8 @@ class QueryEngine:
         query = self._query_fn()
         if not grating.encode:
             return query(x, grating.effective_c, grating.fft_shape, grating.out_shape)
-        enc, x_scale = self._encode(x, grating.slm_bits)
+        with tracing.span("engine.encode"):
+            enc, x_scale = self._encode(x, grating.slm_bits)
         y = query(enc, grating.effective_c, grating.fft_shape, grating.out_shape)
         return y * x_scale
 
@@ -854,30 +856,37 @@ class QueryEngine:
         """
         kh, kw, _ = ker_shape
         H, W = x.shape[-3:-1]
-        if encode:
-            x, x_scale = self._encode(x, slm_bits, x_scale)
-        else:
-            x_scale = None
-        if plan.pad_t:
-            x = torch.nn.functional.pad(x, (0, plan.pad_t))
+        with tracing.span("engine.encode"):
+            if encode:
+                x, x_scale = self._encode(x, slm_bits, x_scale)
+            else:
+                x_scale = None
+            if plan.pad_t:
+                x = torch.nn.functional.pad(x, (0, plan.pad_t))
         B = x.shape[0]
         win_out = (H - kh + 1, W - kw + 1, plan.step)
         readout = self._readout_fn() if k is not None else None
         blocks, states = [], []
         for c0 in range(0, plan.n_padded, plan.chunk):
-            starts = [(c0 + j) * plan.step for j in range(plan.chunk)]
-            win = torch.cat([x[..., s : s + plan.block_t] for s in starts], dim=0)
-            y = window_fn(win, win_out)
-            y = y.reshape((plan.chunk, B) + tuple(y.shape[1:]))
-            if k is None:
-                blocks.append(y)
-            else:
-                states.append(self._chunk_topk(y, starts, plan, win_out, x_scale, readout, k))
+            with tracing.span("engine.chunk"):
+                starts = [(c0 + j) * plan.step for j in range(plan.chunk)]
+                win = torch.cat([x[..., s : s + plan.block_t] for s in starts], dim=0)
+                y = window_fn(win, win_out)
+                y = y.reshape((plan.chunk, B) + tuple(y.shape[1:]))
+                if k is None:
+                    blocks.append(y)
+                else:
+                    with tracing.span("engine.readout"):
+                        states.append(
+                            self._chunk_topk(y, starts, plan, win_out, x_scale, readout, k)
+                        )
         if k is not None:
-            return self._fold_chunk_states(states, k)
-        y = spectral_conv.stitch_windows(torch.stack(blocks), plan)
-        if x_scale is not None:
-            y = y * x_scale
+            with tracing.span("engine.readout"):
+                return self._fold_chunk_states(states, k)
+        with tracing.span("engine.stitch"):
+            y = spectral_conv.stitch_windows(torch.stack(blocks), plan)
+            if x_scale is not None:
+                y = y * x_scale
         return y
 
     # -- query (fused detection readout) ------------------------------------
@@ -1049,52 +1058,53 @@ class QueryEngine:
             g0 = gratings[0]
             if g0.ker_shape is None:
                 raise ValueError("grating lacks ker_shape; re-record before streaming")
-            members, slot_of = _dedup_members(gratings)
-            pool = self._pool_for(members, shards)
-            xs = [requests[i][1] for i in idxs]
-            kh, kw, kt = g0.ker_shape
-            oh, ow, _ = g0.out_shape
-            frame_hw = (oh + kh - 1, ow + kw - 1)
-            if tuple(xs[0].shape[-3:-1]) != frame_hw:
-                raise ValueError(
-                    f"clip spatial dims {tuple(xs[0].shape[-3:-1])} do not "
-                    f"match the recorded frame size {frame_hw}"
-                )
-            gkeys = [keys[i] for i in idxs]
-            if mesh is not None:
-                lay = self._mesh_layout(pool, slot_of, gkeys)
-            else:
-                lay = self._dedup_layout(pool, gratings, slot_of, gkeys)
-            ux = [xs[j] for j in lay.uniq]
-            nbs = [int(xj.shape[0]) for xj in ux]
-            ub0 = [0]
-            for nb in nbs:
-                ub0.append(ub0[-1] + nb)
-            rows = [r for u, nb in enumerate(nbs) for r in [lay.row_of[u]] * nb]
-            splits = [
-                (ub0[lay.uniq_of[j]], int(xs[j].shape[0]), lay.o_off[j], gratings[j].n_out)
-                for j in range(len(idxs))
-            ]
-            self._count_pooled(sum(int(xj.shape[0]) for xj in xs), sum(nbs))
-            x = stack_streams(ux, self.device)
-            plan = self.stream_plan_for(g0, x.shape[-1], chunk_windows)
-            mbw = self._max_buffer_windows(max_buffer_windows)
-            chunked = mbw is not None and plan.n_blocks > mbw
-            static = dict(
-                ker_shape=g0.ker_shape, encode=g0.encode, slm_bits=g0.slm_bits, k=readout_k
-            )
-            if mesh is not None:
-                run = self._mesh_stream_fn(pool, mesh, g0.fft_shape, static)
-            else:
-                max_row = max(lay.row_of) if lay.row_of else 0
-                pool_re, pool_im = self._padded_arena(pool, max_row, lay.n_out)
-                upload = _SegmentUploader(self.device) if chunked else self._as_input
-
-                def run(xs_, x_scale, p):
-                    window_fn = self._pooled_window_fn(
-                        pool_re, pool_im, rows, lay.n_out, g0.fft_shape, p.chunk
+            with tracing.span("engine.layout"):
+                members, slot_of = _dedup_members(gratings)
+                pool = self._pool_for(members, shards)
+                xs = [requests[i][1] for i in idxs]
+                kh, kw, kt = g0.ker_shape
+                oh, ow, _ = g0.out_shape
+                frame_hw = (oh + kh - 1, ow + kw - 1)
+                if tuple(xs[0].shape[-3:-1]) != frame_hw:
+                    raise ValueError(
+                        f"clip spatial dims {tuple(xs[0].shape[-3:-1])} do not "
+                        f"match the recorded frame size {frame_hw}"
                     )
-                    return self._osave(upload(xs_), window_fn, x_scale, plan=p, **static)
+                gkeys = [keys[i] for i in idxs]
+                if mesh is not None:
+                    lay = self._mesh_layout(pool, slot_of, gkeys)
+                else:
+                    lay = self._dedup_layout(pool, gratings, slot_of, gkeys)
+                ux = [xs[j] for j in lay.uniq]
+                nbs = [int(xj.shape[0]) for xj in ux]
+                ub0 = [0]
+                for nb in nbs:
+                    ub0.append(ub0[-1] + nb)
+                rows = [r for u, nb in enumerate(nbs) for r in [lay.row_of[u]] * nb]
+                splits = [
+                    (ub0[lay.uniq_of[j]], int(xs[j].shape[0]), lay.o_off[j], gratings[j].n_out)
+                    for j in range(len(idxs))
+                ]
+                self._count_pooled(sum(int(xj.shape[0]) for xj in xs), sum(nbs))
+                x = stack_streams(ux, self.device)
+                plan = self.stream_plan_for(g0, x.shape[-1], chunk_windows)
+                mbw = self._max_buffer_windows(max_buffer_windows)
+                chunked = mbw is not None and plan.n_blocks > mbw
+                static = dict(
+                    ker_shape=g0.ker_shape, encode=g0.encode, slm_bits=g0.slm_bits, k=readout_k
+                )
+                if mesh is not None:
+                    run = self._mesh_stream_fn(pool, mesh, g0.fft_shape, static)
+                else:
+                    max_row = max(lay.row_of) if lay.row_of else 0
+                    pool_re, pool_im = self._padded_arena(pool, max_row, lay.n_out)
+                    upload = _SegmentUploader(self.device) if chunked else self._as_input
+
+                    def run(xs_, x_scale, p):
+                        window_fn = self._pooled_window_fn(
+                            pool_re, pool_im, rows, lay.n_out, g0.fft_shape, p.chunk
+                        )
+                        return self._osave(upload(xs_), window_fn, x_scale, plan=p, **static)
 
             stream_out = (oh, ow, plan.n_valid)
             if not chunked:

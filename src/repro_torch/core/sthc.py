@@ -46,7 +46,7 @@ import warnings
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tracing
 from repro_torch.core import atomic, fidelity as fidelity_mod, optics
 from repro_torch.core.engine import FusedGrating, GratingCache, QueryEngine, default_cache
 from repro_torch.core.fidelity import FidelityPipeline
@@ -219,7 +219,8 @@ class STHC:
         (tested at the paper geometry).
         """
         H, W = x.shape[-3:-1]
-        grating = self.record(kernels, (H, W, block_t))
+        with tracing.span("sthc.record"):
+            grating = self.record(kernels, (H, W, block_t))
         return self.engine.query_stream(grating, x)
 
     def __call__(self, kernels: Array, x: Array) -> Array:

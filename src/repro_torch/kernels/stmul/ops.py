@@ -24,6 +24,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels.stmul import kernel as _kernel
 from repro_torch.kernels.stmul import ref as _ref
 from repro_torch.launch import op_analysis
@@ -149,9 +150,12 @@ def query_grating_pooled(
 ) -> Tensor:
     """One forward FFT over the stacked mixed-tenant batch, one grouped
     MAC against the pooled arena, one inverse FFT, crop."""
-    xhat = torch.fft.rfftn(x, s=fft_shape, dim=_FFT_AXES)
-    yhat = spectral_mac_grouped(xhat, pool_re, pool_im, o_start, n_out)
-    y = torch.fft.irfftn(yhat, s=fft_shape, dim=_FFT_AXES)
+    with tracing.span("stmul.rfftn"):
+        xhat = torch.fft.rfftn(x, s=fft_shape, dim=_FFT_AXES)
+    with tracing.span("stmul.mac"):
+        yhat = spectral_mac_grouped(xhat, pool_re, pool_im, o_start, n_out)
+    with tracing.span("stmul.irfftn"):
+        y = torch.fft.irfftn(yhat, s=fft_shape, dim=_FFT_AXES)
     return y[..., : out_shape[0], : out_shape[1], : out_shape[2]]
 
 
@@ -183,9 +187,12 @@ def query_grating_pallas(
 ) -> Tensor:
     """Kernel counterpart of ``spectral_conv.query_grating``: rfftn, the
     B1 MAC, irfftn, crop.  (The name is the reference's.)"""
-    xhat = torch.fft.rfftn(x, s=fft_shape, dim=_FFT_AXES)
-    yhat = spectral_mac(xhat, grating, version=version)
-    y = torch.fft.irfftn(yhat, s=fft_shape, dim=_FFT_AXES)
+    with tracing.span("stmul.rfftn"):
+        xhat = torch.fft.rfftn(x, s=fft_shape, dim=_FFT_AXES)
+    with tracing.span("stmul.mac"):
+        yhat = spectral_mac(xhat, grating, version=version)
+    with tracing.span("stmul.irfftn"):
+        y = torch.fft.irfftn(yhat, s=fft_shape, dim=_FFT_AXES)
     return y[..., : out_shape[0], : out_shape[1], : out_shape[2]]
 
 

@@ -66,6 +66,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import itertools
 import queue as queue_mod
 import threading
 import time
@@ -76,7 +77,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch import configs, resolve_device
+from repro_torch import configs, resolve_device, tracing
 from repro_torch.core import atomic, fidelity as fidelity_mod, hybrid, optics, throughput
 from repro_torch.core import spectral_conv
 from repro_torch.core.engine import (
@@ -490,6 +491,156 @@ class VideoSearchServer:
             dedup = self.cfg.dedup_clips
         fused = self.cfg.fused_readout and not return_volume
         topk = max(1, int(self.cfg.readout_topk))
+        with tracing.span("serve.prepare"):
+            order, tens, stacks = self._prepare(requests, pooled)
+        if pooled:
+            t0 = time.perf_counter()
+            with tracing.span("serve.fetch"):
+                gratings = [self._fetch_grating(key[0], ten) for (key, _), ten in zip(order, tens)]
+            group_keys = None
+            if dedup:
+                if clip_keys is None:
+                    clip_keys = clip_keys_for([clip for _, clip in requests])
+                group_keys = []
+                for _, idxs in order:
+                    ks = [clip_keys[i] for i in idxs]
+                    if any(k is None for k in ks):
+                        group_keys.append(None)
+                    elif len(ks) == 1:
+                        group_keys.append(ks[0])
+                    else:
+                        group_keys.append(("stack",) + tuple(ks))
+            if self.chaos is not None:  # chaos seam: pooled dispatch
+                self.chaos.on("dispatch", mode="pooled")
+            engine = self.sthc.engine
+            if fused:
+                fmaps = None
+                dets = engine.query_stream_many(
+                    list(zip(gratings, stacks)),
+                    clip_keys=group_keys,
+                    dedup=dedup,
+                    readout_k=topk,
+                    mesh=self.mesh,
+                )
+                with tracing.span("serve.readback"):
+                    states = [(d.scores.cpu(), d.index.cpu()) for d in dets]
+            else:
+                dets = None
+                fmaps = engine.query_stream_many(
+                    list(zip(gratings, stacks)), clip_keys=group_keys, dedup=dedup, mesh=self.mesh
+                )
+                with tracing.span("serve.readback"):
+                    readouts = self._readout(fmaps)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self._pooled_dispatches += 1
+            lat = [dt] * len(order)
+            plans = [
+                ten.sthc.engine.stream_plan_for(g, clips.shape[-1])
+                for ten, g, clips in zip(tens, gratings, stacks)
+            ]
+            # busy seconds credited by window share: the batch paid dt once
+            weights = [p.n_blocks * int(clips.shape[0]) for p, clips in zip(plans, stacks)]
+            total_w = sum(weights) or 1
+            busy = [dt * w / total_w for w in weights]
+        else:
+            gratings, plans, lat, busy = [], [], [], []
+            fmaps = None if fused else []
+            dets = [] if fused else None
+            states = [] if fused else None
+            for (key, _), ten, clips in zip(order, tens, stacks):
+                t0 = time.perf_counter()
+                with tracing.span("serve.fetch"):
+                    grating = self._fetch_grating(key[0], ten)
+                if self.chaos is not None:  # chaos seam: sequential path
+                    self.chaos.on("dispatch", mode="sequential")
+                if fused:
+                    det = ten.sthc.engine.query_stream(grating, clips, readout_k=topk)
+                    dets.append(det)
+                    with tracing.span("serve.readback"):
+                        states.append((det.scores.cpu(), det.index.cpu()))
+                else:
+                    fmaps.append(ten.sthc.engine.query_stream(grating, clips))
+                    with tracing.span("serve.readback"):
+                        _sync(self.device)
+                dt = time.perf_counter() - t0
+                with self._lock:
+                    self._sequential_dispatches += 1
+                gratings.append(grating)
+                plans.append(ten.sthc.engine.stream_plan_for(grating, clips.shape[-1]))
+                lat.append(dt)
+                busy.append(dt)
+            if not fused:
+                with tracing.span("serve.readback"):
+                    readouts = self._readout(fmaps)
+
+        with tracing.span("serve.assemble"):
+            results: list = [None] * len(requests)
+            with self._lock:
+                for g_i, ((key, idxs), ten, clips) in enumerate(zip(order, tens, stacks)):
+                    tgt = ten if self._tenants.get(key[0]) is ten else self._retired
+                    n_streams = clips.shape[0]
+                    tgt.queries += len(idxs)
+                    tgt.windows += plans[g_i].n_blocks * n_streams
+                    tgt.frames += int(clips.shape[-1]) * n_streams
+                    tgt.seconds += busy[g_i]
+            guard = self.cfg.guard_scores
+            for g_i, ((key, idxs), clips) in enumerate(zip(order, stacks)):
+                tenant = key[0]
+                plan = plans[g_i]
+                topk_s = topk_t = None
+                if fused:
+                    # slot 0 of the (B, O, K) state IS the stitched max/argmax
+                    tmod = int(dets[g_i].out_shape[-1])
+                    state_s = states[g_i][0].numpy()
+                    state_i = states[g_i][1].numpy()
+                    peak = state_s[..., 0]
+                    idx = state_i[..., 0]
+                    if topk > 1:
+                        topk_s = state_s
+                        topk_t = np.where(state_i == TOPK_EMPTY_IDX, -1, state_i % tmod)
+                else:
+                    tmod = int(fmaps[g_i].shape[-1])
+                    peak = readouts[g_i][0]
+                    idx = readouts[g_i][1]
+                if self.chaos is not None:  # chaos seam: detection readout
+                    peak = self.chaos.on(
+                        "readout", mode="pooled" if pooled else "sequential", payload=peak
+                    )
+                t_idx = idx % tmod
+                b = 0
+                for i in idxs:
+                    nb = requests[i][1].shape[0]
+                    scores = peak[b : b + nb]
+                    if guard and not np.isfinite(scores).all():
+                        with self._lock:
+                            self._quarantined += 1
+                        results[i] = TenantQuarantined(
+                            f"non-finite correlation scores for tenant "
+                            f"{tenant!r}; request quarantined",
+                            tenant=tenant,
+                        )
+                    else:
+                        res = {
+                            "tenant": tenant,
+                            "scores": scores,
+                            "peak_frame": t_idx[b : b + nb],
+                            "latency_s": lat[g_i],
+                            "windows": plan.n_blocks,
+                        }
+                        if topk_s is not None:
+                            res["topk_scores"] = topk_s[b : b + nb]
+                            res["topk_frames"] = topk_t[b : b + nb]
+                        if return_volume:
+                            res["volume"] = fmaps[g_i][b : b + nb]
+                        results[i] = res
+                    b += nb
+        return results
+
+    def _prepare(self, requests, pooled: bool) -> tuple[list, list, list]:
+        """Validate the requests, group them by tenant and stream shape in
+        canonical order, and stack each group's clips on the device:
+        ``(order, tenants, stacks)``."""
         groups: dict[tuple, list[int]] = {}
         with self._lock:  # snapshot: a racing remove_tenant can't break
             tenants = dict(self._tenants)
@@ -541,142 +692,7 @@ class VideoSearchServer:
         stacks = [stack(idxs, ten) for (_, idxs), ten in zip(order, tens)]
         if self.chaos is not None:  # chaos seam: batch encode/stacking
             self.chaos.on("encode", mode="pooled" if pooled else "sequential")
-
-        if pooled:
-            t0 = time.perf_counter()
-            gratings = [self._fetch_grating(key[0], ten) for (key, _), ten in zip(order, tens)]
-            group_keys = None
-            if dedup:
-                if clip_keys is None:
-                    clip_keys = clip_keys_for([clip for _, clip in requests])
-                group_keys = []
-                for _, idxs in order:
-                    ks = [clip_keys[i] for i in idxs]
-                    if any(k is None for k in ks):
-                        group_keys.append(None)
-                    elif len(ks) == 1:
-                        group_keys.append(ks[0])
-                    else:
-                        group_keys.append(("stack",) + tuple(ks))
-            if self.chaos is not None:  # chaos seam: pooled dispatch
-                self.chaos.on("dispatch", mode="pooled")
-            engine = self.sthc.engine
-            if fused:
-                fmaps = None
-                dets = engine.query_stream_many(
-                    list(zip(gratings, stacks)),
-                    clip_keys=group_keys,
-                    dedup=dedup,
-                    readout_k=topk,
-                    mesh=self.mesh,
-                )
-                states = [(d.scores.cpu(), d.index.cpu()) for d in dets]
-            else:
-                dets = None
-                fmaps = engine.query_stream_many(
-                    list(zip(gratings, stacks)), clip_keys=group_keys, dedup=dedup, mesh=self.mesh
-                )
-                readouts = self._readout(fmaps)
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self._pooled_dispatches += 1
-            lat = [dt] * len(order)
-            plans = [
-                ten.sthc.engine.stream_plan_for(g, clips.shape[-1])
-                for ten, g, clips in zip(tens, gratings, stacks)
-            ]
-            # busy seconds credited by window share: the batch paid dt once
-            weights = [p.n_blocks * int(clips.shape[0]) for p, clips in zip(plans, stacks)]
-            total_w = sum(weights) or 1
-            busy = [dt * w / total_w for w in weights]
-        else:
-            gratings, plans, lat, busy = [], [], [], []
-            fmaps = None if fused else []
-            dets = [] if fused else None
-            states = [] if fused else None
-            for (key, _), ten, clips in zip(order, tens, stacks):
-                t0 = time.perf_counter()
-                grating = self._fetch_grating(key[0], ten)
-                if self.chaos is not None:  # chaos seam: sequential path
-                    self.chaos.on("dispatch", mode="sequential")
-                if fused:
-                    det = ten.sthc.engine.query_stream(grating, clips, readout_k=topk)
-                    dets.append(det)
-                    states.append((det.scores.cpu(), det.index.cpu()))
-                else:
-                    fmaps.append(ten.sthc.engine.query_stream(grating, clips))
-                    _sync(self.device)
-                dt = time.perf_counter() - t0
-                with self._lock:
-                    self._sequential_dispatches += 1
-                gratings.append(grating)
-                plans.append(ten.sthc.engine.stream_plan_for(grating, clips.shape[-1]))
-                lat.append(dt)
-                busy.append(dt)
-            if not fused:
-                readouts = self._readout(fmaps)
-
-        results: list = [None] * len(requests)
-        with self._lock:
-            for g_i, ((key, idxs), ten, clips) in enumerate(zip(order, tens, stacks)):
-                tgt = ten if self._tenants.get(key[0]) is ten else self._retired
-                n_streams = clips.shape[0]
-                tgt.queries += len(idxs)
-                tgt.windows += plans[g_i].n_blocks * n_streams
-                tgt.frames += int(clips.shape[-1]) * n_streams
-                tgt.seconds += busy[g_i]
-        guard = self.cfg.guard_scores
-        for g_i, ((key, idxs), clips) in enumerate(zip(order, stacks)):
-            tenant = key[0]
-            plan = plans[g_i]
-            topk_s = topk_t = None
-            if fused:
-                # slot 0 of the (B, O, K) state IS the stitched max/argmax
-                tmod = int(dets[g_i].out_shape[-1])
-                state_s = states[g_i][0].numpy()
-                state_i = states[g_i][1].numpy()
-                peak = state_s[..., 0]
-                idx = state_i[..., 0]
-                if topk > 1:
-                    topk_s = state_s
-                    topk_t = np.where(state_i == TOPK_EMPTY_IDX, -1, state_i % tmod)
-            else:
-                tmod = int(fmaps[g_i].shape[-1])
-                peak = readouts[g_i][0]
-                idx = readouts[g_i][1]
-            if self.chaos is not None:  # chaos seam: detection readout
-                peak = self.chaos.on(
-                    "readout", mode="pooled" if pooled else "sequential", payload=peak
-                )
-            t_idx = idx % tmod
-            b = 0
-            for i in idxs:
-                nb = requests[i][1].shape[0]
-                scores = peak[b : b + nb]
-                if guard and not np.isfinite(scores).all():
-                    with self._lock:
-                        self._quarantined += 1
-                    results[i] = TenantQuarantined(
-                        f"non-finite correlation scores for tenant "
-                        f"{tenant!r}; request quarantined",
-                        tenant=tenant,
-                    )
-                else:
-                    res = {
-                        "tenant": tenant,
-                        "scores": scores,
-                        "peak_frame": t_idx[b : b + nb],
-                        "latency_s": lat[g_i],
-                        "windows": plan.n_blocks,
-                    }
-                    if topk_s is not None:
-                        res["topk_scores"] = topk_s[b : b + nb]
-                        res["topk_frames"] = topk_t[b : b + nb]
-                    if return_volume:
-                        res["volume"] = fmaps[g_i][b : b + nb]
-                    results[i] = res
-                b += nb
-        return results
+        return order, tens, stacks
 
     def _through_cursor(self, ten: _Tenant, n_frames: int) -> bool:
         """Whether a tenant group's stream of ``n_frames`` needs more than
@@ -768,12 +784,17 @@ class _Pending:  # would make field-wise == ambiguous (array truthiness)
     clip_id: tuple | None = None
     # absolute wall-clock deadline (time.time() frame); None = none
     deadline: float | None = None
+    # the scheduler's request number, and when the request entered the
+    # queue (perf_counter_ns): the start of its queue wait
+    seq: int = 0
+    t_queued_ns: int = dataclasses.field(default_factory=time.perf_counter_ns)
 
 
 class MicrobatchScheduler:
     """Async microbatch front end for a :class:`VideoSearchServer` (port
-    of the reference's scheduler: same constructor, defaults, methods and
-    ``metrics()`` keys).
+    of the reference's scheduler: same constructor, defaults and methods;
+    ``metrics()`` has the reference's keys plus ``dequeued`` and
+    ``queue_wait_ns``).
 
     Callers ``submit()`` requests and get a
     :class:`concurrent.futures.Future`; a scheduler thread drains the
@@ -794,7 +815,10 @@ class MicrobatchScheduler:
       groups) and counted in ``dedup_grouped``.
     * **Observability** — per-request submit → result latency in a
       sliding window; :meth:`metrics` reports p50/p90/p99, queue depth,
-      shed/submit/complete counters and the mean formed batch size.
+      shed/submit/complete counters and the mean formed batch size, and
+      the cumulative ``dequeued`` / ``queue_wait_ns`` (requests taken into
+      a dispatched batch, and their summed wait since submit), whose
+      deltas give the mean queue wait over any window.
     * **Resilience** — deadlines (``default_deadline_s`` / per-request
       ``deadline_s``) enforced at dispatch, across retries, and by a
       watchdog thread that resolves any overdue future with
@@ -858,7 +882,10 @@ class MicrobatchScheduler:
         self.deadline_missed = 0  # guarded-by: _lock
         self.retries = 0  # guarded-by: _lock
         self.quarantined = 0  # guarded-by: _lock
+        self.dequeued = 0  # guarded-by: _lock
+        self.queue_wait_ns = 0  # guarded-by: _lock
         self._batch_seq = 0  # guarded-by: _lock
+        self._request_seq = itertools.count(1)
         # serializes intake against close(): submit must never land a
         # request after close() drained the queue (its future would hang
         # forever).  Deliberately NOT self._lock — the batcher takes
@@ -910,7 +937,7 @@ class MicrobatchScheduler:
         if deadline_s is None:
             deadline_s = self.default_deadline_s
         deadline = now + deadline_s if deadline_s is not None else None
-        item = _Pending(tenant, clip, Future(), now, cid, deadline)
+        item = _Pending(tenant, clip, Future(), now, cid, deadline, seq=next(self._request_seq))
         # every put happens under the intake lock (so close() can never
         # miss a request and leave its future hanging), but the lock is
         # never held across a blocking wait: a backpressured submitter
@@ -961,49 +988,54 @@ class MicrobatchScheduler:
             item = self._take(timeout=0.05)
             if item is None:
                 continue
-            batch = [item]
-            shape = tuple(item.clip.shape)
-            deadline = item.t_submit + self.batch_wait_s
-            # coalesce with earlier same-shape stash leftovers first
-            kept: collections.deque[_Pending] = collections.deque()
-            while self._stash and len(batch) < self.max_batch:
-                nxt = self._stash.popleft()
-                if tuple(nxt.clip.shape) == shape:
-                    batch.append(nxt)
-                else:
-                    kept.append(nxt)
-            kept.extend(self._stash)
-            self._stash = kept
-            # then the live queue: wait out the deadline for a fuller
-            # batch, and past it take only what is already here —
-            # bounded to 2 * max_batch pulls per cycle, so a sustained
-            # other-shape stream can neither livelock this batch nor
-            # grow the stash without bound
-            skipped: list[_Pending] = []
-            while (
-                len(batch) < self.max_batch
-                and len(batch) + len(skipped) < 2 * self.max_batch
-            ):
-                rem = deadline - time.time()
+            # one batcher cycle: form, then dispatch and deliver
+            with tracing.span("sched.batch") as cycle:
+                with tracing.span("sched.form"):
+                    batch = [item]
+                    shape = tuple(item.clip.shape)
+                    deadline = item.t_submit + self.batch_wait_s
+                    # coalesce with earlier same-shape stash leftovers first
+                    kept: collections.deque[_Pending] = collections.deque()
+                    while self._stash and len(batch) < self.max_batch:
+                        nxt = self._stash.popleft()
+                        if tuple(nxt.clip.shape) == shape:
+                            batch.append(nxt)
+                        else:
+                            kept.append(nxt)
+                    kept.extend(self._stash)
+                    self._stash = kept
+                    # then the live queue: wait out the deadline for a fuller
+                    # batch, and past it take only what is already here —
+                    # bounded to 2 * max_batch pulls per cycle, so a sustained
+                    # other-shape stream can neither livelock this batch nor
+                    # grow the stash without bound
+                    skipped: list[_Pending] = []
+                    while (
+                        len(batch) < self.max_batch
+                        and len(batch) + len(skipped) < 2 * self.max_batch
+                    ):
+                        rem = deadline - time.time()
+                        try:
+                            if rem > 0:
+                                nxt = self._q.get(timeout=rem)
+                            else:
+                                nxt = self._q.get_nowait()
+                        except queue_mod.Empty:
+                            break
+                        if tuple(nxt.clip.shape) == shape:
+                            batch.append(nxt)
+                        else:
+                            skipped.append(nxt)
+                    self._stash.extend(skipped)  # next cycle, arrival order kept
                 try:
-                    if rem > 0:
-                        nxt = self._q.get(timeout=rem)
-                    else:
-                        nxt = self._q.get_nowait()
-                except queue_mod.Empty:
-                    break
-                if tuple(nxt.clip.shape) == shape:
-                    batch.append(nxt)
-                else:
-                    skipped.append(nxt)
-            self._stash.extend(skipped)  # next cycle, arrival order kept
-            try:
-                self._dispatch(self._form_dedup_groups(batch))
-            except Exception:  # noqa: BLE001 — the batcher must survive
-                # _dispatch fails futures itself; this is a belt for
-                # future-state races — a dead batcher thread would hang
-                # every later request
-                pass
+                    cycle.note(
+                        "batch", self._dispatch(self._form_dedup_groups(batch))
+                    )
+                except Exception:  # noqa: BLE001 — the batcher must survive
+                    # _dispatch fails futures itself; this is a belt for
+                    # future-state races — a dead batcher thread would hang
+                    # every later request
+                    pass
 
     def _form_dedup_groups(self, batch: list[_Pending]) -> list[_Pending]:
         """Arrange a formed microbatch into shared-stream dedup groups:
@@ -1049,16 +1081,25 @@ class MicrobatchScheduler:
                 self.deadline_missed += 1
                 self.failed += 1
 
-    def _dispatch(self, batch: list[_Pending]) -> None:
-        # claim each future before any work: a cancelled future drops
-        # out, and claiming locks out late cancels during the server
-        # call.  _execute assumes every future it sees is claimed.
+    def _dispatch(self, batch: list[_Pending]) -> int:
+        """Serve one formed batch; returns its id.  Its requests' queue
+        waits end here."""
+        t_ns = time.perf_counter_ns()
         with self._lock:
             self._batch_seq += 1
             batch_id = self._batch_seq
+            self.dequeued += len(batch)
+            self.queue_wait_ns += sum(t_ns - p.t_queued_ns for p in batch)
+        if tracing.recording():
+            for p in batch:
+                tracing.record("sched.queue", p.t_queued_ns, t_ns, request=p.seq, batch=batch_id)
+        # claim each future before any work: a cancelled future drops
+        # out, and claiming locks out late cancels during the server
+        # call.  _execute assumes every future it sees is claimed.
         batch = [p for p in batch if self._claim(p.future)]
         if batch:
             self._execute(batch, batch_id)
+        return batch_id
 
     def _run_mode(self, mode: str, batch: list[_Pending]) -> list:
         """One dispatch in the given ladder mode.  ``pooled`` defers to
@@ -1155,26 +1196,27 @@ class MicrobatchScheduler:
     def _deliver(
         self, batch: list[_Pending], outs: list, batch_id: int
     ) -> None:
-        now = time.time()
-        with self._lock:
-            self.batches += 1
-            self._batch_sizes.append(len(batch))
-        for p, out in zip(batch, outs):
-            if isinstance(out, ServingError):
-                # signal-integrity quarantine: the server isolated this
-                # row; the rest of the batch delivered untouched
-                out.tenant = out.tenant or p.tenant
-                out.batch_id = batch_id
-                if resolve_exception(p.future, out):
+        with tracing.span("sched.deliver"):
+            now = time.time()
+            with self._lock:
+                self.batches += 1
+                self._batch_sizes.append(len(batch))
+            for p, out in zip(batch, outs):
+                if isinstance(out, ServingError):
+                    # signal-integrity quarantine: the server isolated this
+                    # row; the rest of the batch delivered untouched
+                    out.tenant = out.tenant or p.tenant
+                    out.batch_id = batch_id
+                    if resolve_exception(p.future, out):
+                        with self._lock:
+                            self.quarantined += 1
+                            self.failed += 1
+                    continue
+                out["queue_latency_s"] = now - p.t_submit
+                if resolve_result(p.future, out):
                     with self._lock:
-                        self.quarantined += 1
-                        self.failed += 1
-                continue
-            out["queue_latency_s"] = now - p.t_submit
-            if resolve_result(p.future, out):
-                with self._lock:
-                    self.completed += 1
-                    self._latencies.append(now - p.t_submit)
+                        self.completed += 1
+                        self._latencies.append(now - p.t_submit)
 
     # -- lifecycle / observability ----------------------------------------
 
@@ -1238,7 +1280,8 @@ class MicrobatchScheduler:
     def metrics(self) -> dict:
         """Scheduler counters + end-to-end latency percentiles +
         resilience state (ladder mode, breaker snapshots, deadline/
-        retry/quarantine counters)."""
+        retry/quarantine counters): the reference's keys, plus the
+        cumulative ``dequeued`` and ``queue_wait_ns``."""
         with self._lock:
             lats = sorted(self._latencies)
             sizes = list(self._batch_sizes)
@@ -1259,6 +1302,8 @@ class MicrobatchScheduler:
                 "deadline_missed": self.deadline_missed,
                 "retries": self.retries,
                 "quarantined": self.quarantined,
+                "dequeued": self.dequeued,
+                "queue_wait_ns": self.queue_wait_ns,
                 "watchdog_expired": self._watchdog.expired,
                 "default_deadline_s": self.default_deadline_s,
             }
@@ -1310,10 +1355,14 @@ class HybridClassifierServer:
     def classify(self, clips) -> np.ndarray:
         """Class predictions (B,) of clips (B, C, H, W, frames), numpy or
         a tensor."""
-        x = hybrid.clips_to_device(self.params, clips)
-        conv = self.sthc.correlate(self.grating, x)  # optical layer
-        logits = self._head(conv)  # digital layers
-        return torch.argmax(logits, dim=-1).cpu().numpy()
+        with tracing.span("classify.upload"):
+            x = hybrid.clips_to_device(self.params, clips)
+        with tracing.span("classify.correlate"):
+            conv = self.sthc.correlate(self.grating, x)  # optical layer
+        with tracing.span("classify.head"):
+            preds = torch.argmax(self._head(conv), dim=-1)  # digital layers
+        with tracing.span("classify.readback"):
+            return preds.cpu().numpy()
 
     @torch.no_grad()
     def classify_stream(self, clips, block_t: int | None = None) -> np.ndarray:
@@ -1337,20 +1386,23 @@ class HybridClassifierServer:
                 f"stream of {clips.shape[-1]} frames is shorter than one "
                 f"classification window ({cfg.frames} frames)"
             )
-        conv = self.sthc.correlate_stream(
-            self.params.conv_w,
-            host_stream(clips, self.device),
-            cfg.frames if block_t is None else int(block_t),
-        )
+        with tracing.span("classify.upload"):
+            x = host_stream(clips, self.device)
+        with tracing.span("classify.correlate"):
+            conv = self.sthc.correlate_stream(
+                self.params.conv_w, x, cfg.frames if block_t is None else int(block_t)
+            )
         ot = cfg.conv_out_shape[2]
         n_seg = conv.shape[-1] // ot
-        # fold the equal-shape segments into the batch axis: one head
-        # call + one host transfer regardless of stream length
-        segs = conv[..., : n_seg * ot].reshape(conv.shape[:-1] + (n_seg, ot))
-        segs = torch.movedim(segs, -2, 0)  # segment-major
-        segs = segs.reshape((n_seg * conv.shape[0],) + tuple(conv.shape[1:-1]) + (ot,))
-        preds = torch.argmax(self._head(segs), dim=-1).reshape(n_seg, -1)
-        return preds.T.cpu().numpy()  # (B, n_seg)
+        with tracing.span("classify.head"):
+            # fold the equal-shape segments into the batch axis: one head
+            # call + one host transfer regardless of stream length
+            segs = conv[..., : n_seg * ot].reshape(conv.shape[:-1] + (n_seg, ot))
+            segs = torch.movedim(segs, -2, 0)  # segment-major
+            segs = segs.reshape((n_seg * conv.shape[0],) + tuple(conv.shape[1:-1]) + (ot,))
+            preds = torch.argmax(self._head(segs), dim=-1).reshape(n_seg, -1)
+        with tracing.span("classify.readback"):
+            return preds.T.cpu().numpy()  # (B, n_seg)
 
 
 # ---------------------------------------------------------------------------

@@ -646,7 +646,11 @@ def test_replica_set_search_matches_reference():
         ("ref", r_replica.ReplicaSet, r_replica.HedgePolicy, _ref_build, (r_fid, r_optics, r_atomic)),
         ("port", ReplicaSet, HedgePolicy, _port_build, (fid, optics, atomic)),
     ):
-        with cls(build, n_replicas=2, hedge=hedge(enabled=False)) as rs:
+        # no replica is stalled here: a detector that fires only after
+        # TIMEOUT keeps a first search's compile under suite load from
+        # declaring both replicas dead
+        with cls(build, n_replicas=2, hedge=hedge(enabled=False),
+                 suspect_after_s=TIMEOUT / 2, dead_after_s=TIMEOUT) as rs:
             for name, k, kw in _tenant_args(*mods):
                 rs.add_tenant(name, k, **kw)
             outs[tag] = [rs.search(t, _clip(s, T=24)) for t in ("t0", "t1") for s in (3, 4)]

@@ -787,7 +787,9 @@ def test_scheduler_matches_reference_scheduler():
     assert excused <= 1
     for k in ("submitted", "completed", "failed", "rejected"):
         assert outs["port_m"][k] == outs["ref_m"][k]
-    assert set(outs["port_m"]) == set(outs["ref_m"])
+    # the port's queue-wait counters are its own additions
+    assert set(outs["port_m"]) == set(outs["ref_m"]) | {"dequeued", "queue_wait_ns"}
+    assert outs["port_m"]["dequeued"] == len(reqs)
 
 
 RULES = [
