@@ -582,15 +582,23 @@ class QueryEngine:
         # the arena tiles placed on a mesh, keyed (pool id, mesh); entries
         # pin the pool.  A server owns one mesh per replica, so it stays small
         self._mesh_arenas: OrderedDict[tuple, tuple] = OrderedDict()  # guarded-by: _pools_lock
+        # per-geometry window-chunk positions of the fused readout, keyed
+        # (H', W', step, chunk, n_valid, device)
+        self._readout_bases: OrderedDict[tuple, tuple] = OrderedDict()  # guarded-by: _pools_lock
         self._pools_lock = threading.Lock()
         # clip-dedup accounting: offered = clip rows requested,
         # dispatched = physical rows after collapsing equal clips
         self._pooled_dispatches = 0  # guarded-by: _pools_lock
         self._pooled_rows_offered = 0  # guarded-by: _pools_lock
         self._pooled_rows_dispatched = 0  # guarded-by: _pools_lock
+        # fused-readout positions: bases built, window chunks that reused one
+        self._readout_index_builds = 0  # guarded-by: _pools_lock
+        self._readout_index_hits = 0  # guarded-by: _pools_lock
 
     def pool_stats(self) -> dict:
-        """Pooled-executor counters: clip rows the dedup collapsed."""
+        """Pooled-executor counters: clip rows the dedup collapsed, and
+        the fused readout's position bases built and window chunks that
+        reused a cached one."""
         with self._pools_lock:
             offered = self._pooled_rows_offered
             dispatched = self._pooled_rows_dispatched
@@ -599,6 +607,8 @@ class QueryEngine:
                 "rows_offered": offered,
                 "rows_dispatched": dispatched,
                 "rows_saved": offered - dispatched,
+                "readout_index_builds": self._readout_index_builds,
+                "readout_index_hits": self._readout_index_hits,
             }
 
     def _count_pooled(self, offered: int, dispatched: int) -> None:
@@ -865,7 +875,9 @@ class QueryEngine:
                 x = torch.nn.functional.pad(x, (0, plan.pad_t))
         B = x.shape[0]
         win_out = (H - kh + 1, W - kw + 1, plan.step)
-        readout = self._readout_fn() if k is not None else None
+        if k is not None:
+            readout = self._readout_fn()
+            index = self._readout_index(win_out, plan, x.device)
         blocks, states = [], []
         for c0 in range(0, plan.n_padded, plan.chunk):
             with tracing.span("engine.chunk"):
@@ -878,7 +890,7 @@ class QueryEngine:
                 else:
                     with tracing.span("engine.readout"):
                         states.append(
-                            self._chunk_topk(y, starts, plan, win_out, x_scale, readout, k)
+                            self._chunk_topk(y, starts[0], plan, index, x_scale, readout, k)
                         )
         if k is not None:
             with tracing.span("engine.readout"):
@@ -901,35 +913,61 @@ class QueryEngine:
 
         return readout
 
-    def _chunk_topk(self, win, starts, plan, win_out, x_scale, readout, k):
-        """Collapse one window chunk (chunk, B, O, H', W', step) to the
-        (B, O, k) state: de-scale, synthesize each element's global flat
-        position in the (H', W', n_valid) stream volume, mask the
-        outputs past ``n_valid`` to −inf / the sentinel, and reduce."""
+    def _readout_index(self, win_out, plan, device) -> tuple[Tensor, Tensor]:
+        """The fused readout's positions of a window chunk relative to its
+        first output frame — ``hw · n_valid + j · step + t`` as (chunk,
+        H', W', step) int64 — and its local frames ``j · step + t`` as
+        (chunk, 1, 1, step): built on ``device`` once per geometry and
+        memoized with a small LRU bound, so no chunk copies positions
+        from the host.  A hit counts every window chunk of the pass."""
         Hp, Wp, step = win_out
-        nv = plan.n_valid
-        dev = win.device
-        if x_scale is not None:
-            win = win * x_scale[None]
-        t_glob = (
-            torch.as_tensor(starts, dtype=torch.long, device=dev)[:, None]
-            + torch.arange(step, device=dev)[None, :]
-        )  # (chunk, step)
+        key = (Hp, Wp, step, plan.chunk, plan.n_valid, device)
+        with self._pools_lock:
+            hit = self._readout_bases.get(key)
+            if hit is not None:
+                self._readout_bases.move_to_end(key)
+                self._readout_index_hits += plan.n_padded // plan.chunk
+                return hit
+        local_t = (
+            torch.arange(plan.chunk, device=device)[:, None] * step
+            + torch.arange(step, device=device)[None, :]
+        )[:, None, None, :]
         hw = (
-            torch.arange(Hp, device=dev)[:, None] * Wp
-            + torch.arange(Wp, device=dev)[None, :]
+            torch.arange(Hp, device=device)[:, None] * Wp
+            + torch.arange(Wp, device=device)[None, :]
         )
-        gidx = hw[None, :, :, None] * nv + t_glob[:, None, None, :]
-        valid = t_glob < nv
-        gidx = torch.where(valid[:, None, None, :], gidx, TOPK_EMPTY_IDX).to(torch.int32)
-        win = torch.where(
-            valid[:, None, None, None, None, :],
-            win,
-            torch.full((), float("-inf"), dtype=win.dtype, device=dev),
-        )
+        index = (hw[None, :, :, None] * plan.n_valid + local_t, local_t)
+        with self._pools_lock:
+            self._readout_bases[key] = index
+            self._readout_index_builds += 1
+            while len(self._readout_bases) > self._max_pools:
+                self._readout_bases.popitem(last=False)
+        return index
+
+    def _chunk_topk(self, win, t0, plan, index, x_scale, readout, k):
+        """Collapse one window chunk (chunk, B, O, H', W', step) whose first
+        output frame is ``t0`` to the (B, O, k) state: de-scale into the
+        readout's (B, O, chunk, H', W', step) layout, offset the cached
+        positions (:meth:`_readout_index`) by ``t0`` into the (H', W',
+        n_valid) stream volume, mask a tail chunk's outputs past
+        ``n_valid`` to −inf / the sentinel, and reduce.  Nothing here
+        waits for the device."""
+        base, local_t = index
         B, O = win.shape[1], win.shape[2]
-        flat = torch.movedim(win, 0, 2).reshape(B, O, -1)
-        return readout(flat, gidx.reshape(-1), k)
+        flat = win.new_empty((B, O) + tuple(base.shape))
+        if x_scale is None:
+            flat.movedim(2, 0).copy_(win)
+        else:
+            torch.mul(win, x_scale[None], out=flat.movedim(2, 0))
+        # the int64 sum stored as int32 in one launch, wrapping as .to(torch.int32)
+        gidx = torch.empty(base.shape, dtype=torch.int32, device=base.device)
+        torch.add(base, t0, out=gidx)
+        nv = plan.n_valid
+        if t0 + plan.chunk * plan.step > nv:
+            valid = local_t < nv - t0
+            gidx = torch.where(valid, gidx, TOPK_EMPTY_IDX)
+            flat = torch.where(valid, flat, float("-inf"))
+        return readout(flat.reshape(B, O, -1), gidx.reshape(-1), k)
 
     @staticmethod
     def _fold_chunk_states(states, k):

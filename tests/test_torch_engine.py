@@ -289,6 +289,88 @@ def test_query_stream_many_pooled_dedup_fused(store, rng):
         check_peaks(dets[j], ref_dets[j], tol)
 
 
+def _chunk_topk_formula(win, starts, plan, win_out, x_scale, readout, k):
+    """The fused readout's chunk reduction as first written: every chunk
+    copies its window starts to the device, builds its positions from
+    them and masks every output past ``n_valid``."""
+    Hp, Wp, step = win_out
+    nv = plan.n_valid
+    dev = win.device
+    if x_scale is not None:
+        win = win * x_scale[None]
+    t_glob = (
+        torch.as_tensor(starts, dtype=torch.long, device=dev)[:, None]
+        + torch.arange(step, device=dev)[None, :]
+    )
+    hw = torch.arange(Hp, device=dev)[:, None] * Wp + torch.arange(Wp, device=dev)[None, :]
+    gidx = hw[None, :, :, None] * nv + t_glob[:, None, None, :]
+    valid = t_glob < nv
+    gidx = torch.where(valid[:, None, None, :], gidx, t_engine.TOPK_EMPTY_IDX).to(torch.int32)
+    win = torch.where(
+        valid[:, None, None, None, None, :],
+        win,
+        torch.full((), float("-inf"), dtype=win.dtype, device=dev),
+    )
+    B, O = win.shape[1], win.shape[2]
+    return readout(torch.movedim(win, 0, 2).reshape(B, O, -1), gidx.reshape(-1), k)
+
+
+@pytest.mark.parametrize(
+    "frames,chunk_windows,k,max_buffer_windows",
+    [
+        (40, 4, 1, None),  # n_valid 37: the one chunk ends mid-chunk, a window all padding
+        (55, 4, 3, None),  # n_valid 52: the stream ends exactly on the chunk
+        (40, 1, 3, None),  # one window a chunk, the last ends mid-window
+        (55, 1, 1, None),  # one window a chunk, exactly on it
+        (40, 4, 3, 1),  # the cursor: padded segments, each with its own n_valid
+        (55, 1, 1, 1),
+    ],
+)
+def test_chunk_topk_cached_positions_bitwise(
+    frames, chunk_windows, k, max_buffer_windows, monkeypatch, rng
+):
+    """Every window chunk's top-K state from the cached per-geometry
+    positions is bitwise the state of the formula that copied each
+    chunk's starts to the device; the engine builds one position base
+    per geometry and reuses it on every later chunk of that geometry."""
+    (_, gt0), (_, gt1), (_, gt2) = _tenants(rng)
+    cfg = STHCConfig(
+        fidelity=t_fid.ideal(), use_pallas=True, device="cpu", osave_chunk_windows=chunk_windows
+    )
+    te = QueryEngine(cfg)
+    a = rng.rand(1, 1, 20, 24, frames).astype(np.float32)
+    b = rng.rand(2, 1, 20, 24, frames).astype(np.float32)
+    # groups: ideal {a}, encoded {a, b}, so both de-scale branches run
+    req = [(gt0, a), (gt1, b), (gt2, a)]
+    chunk_topk = te._chunk_topk
+    geoms, calls = set(), []
+
+    def spy(win, t0, plan, index, x_scale, readout, k_):
+        got = chunk_topk(win, t0, plan, index, x_scale, readout, k_)
+        Hp, Wp, step = win.shape[-3:]
+        starts = [t0 + j * step for j in range(plan.chunk)]
+        want = _chunk_topk_formula(win, starts, plan, (Hp, Wp, step), x_scale, readout, k_)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        geoms.add((Hp, Wp, step, plan.chunk, plan.n_valid))
+        calls.append(t0)
+        return got
+
+    monkeypatch.setattr(te, "_chunk_topk", spy)
+    run = dict(chunk_windows=chunk_windows, max_buffer_windows=max_buffer_windows, readout_k=k)
+    first = te.query_stream_many(req, **run)
+    assert calls and te.pool_stats()["readout_index_builds"] == len(geoms)
+    before, n_first = te.pool_stats(), len(calls)
+    again = te.query_stream_many(req, **run)
+    after = te.pool_stats()
+    assert after["readout_index_builds"] == before["readout_index_builds"]
+    assert after["readout_index_hits"] - before["readout_index_hits"] == len(calls) - n_first
+    for d0, d1 in zip(first, again):
+        assert torch.equal(d0.scores, d1.scores) and torch.equal(d0.index, d1.index)
+    single = te.query_stream(gt1, b, **run)
+    assert torch.equal(single.scores, first[1].scores)
+    assert torch.equal(single.index, first[1].index)
+
+
 def test_query_many_matches_reference(rng):
     (gr0, gt0), (gr1, gt1), (gr2, gt2) = _tenants(rng)
     x = rng.rand(2, 1, 20, 24, 16).astype(np.float32)
