@@ -19,8 +19,10 @@ Phases, each reported on lines of its own:
              of every (chunk, P, N) build must hold tensor-core MMAs
              (HMMA, 3xTF32 mma.sync), the scan also cp.async copies; B4's tensor-core kernel
              (``conv3d_tc.cu``) warpgroup MMAs (HGMMA, 3xTF32 wgmma),
-             tensor-map copies (UTMALDG) and bulk copies (UBLKCP), with
-             no wgmma serialization reported by ptxas.
+             tensor-map copies (UTMALDG) and bulk copies (UBLKCP), its
+             implicit-GEMM kernels (``conv3d_igemm.cu``, BN 64 and 128)
+             HGMMA and UTMALDG, with no wgmma serialization reported by
+             ptxas.
 2. serve   — a VideoSearchServer at the paper geometry (60x80 frames,
              four tenants of 9x1x30x40x8 kernels, 64-frame windows, 4
              windows per chunk) answers six 1024-frame requests, two
@@ -164,6 +166,21 @@ Phases, each reported on lines of its own:
              ``predict`` routes take host clips through pinned buffers;
              digital and spectral are also timed with the pageable copy
              they replaced, in turns.
+             Then C3D at its published widths (``phase_c3d``; seeded
+             He-scaled weights) served by ``C3DClassifierServer.classify``
+             on 128 clips of 3x112x112x16, the benchmark cell
+             ``c3d-clips``'s call: one warm-up, 3 timed calls, then one
+             with B4's counters at 0 just before it, which must launch the
+             ``igemm`` route 8 times and no other.  Then each of the eight
+             layers at 128 clips as the trunk calls it (channels-last,
+             one-voxel border, bias, ReLU): ``kernel.route`` must give
+             ``igemm``; ``conv3d_cuda`` against ``ref.conv3d_ref`` within
+             relative L2 1e-5, which one TF32 pass of cuDNN must fail;
+             timed beside the plain version and the library (one cuDNN
+             ``F.conv3d`` with bias, TF32 off, and ReLU in place); the
+             bound is the cell's yardstick (``portbench/pbench/
+             c3d_cost.py``: operations at dense TF32 or bytes at HBM
+             bandwidth, the larger), three passes' beside it.
 8. train   — the same network trained on the card: one ``digital`` step
              (B4 forward, plain backward) against one ``spectral`` step
              from the seeded init and the first batch of 32 (each
@@ -324,7 +341,8 @@ Phases, each reported on lines of its own:
              gated), B5's and B6's forward and plain-backward buckets and
              the ops that move the most bytes.  Every kernel row's bound
              (phases kernels, lm*, classify, train, mesh) comes from
-             ``op_analysis.kernel_cost`` on ``roofline``'s constants.
+             ``op_analysis.kernel_cost`` on ``roofline``'s constants, but
+             C3D's rows' (``c3d_cost``, the benchmark's yardstick).
 16. lm_train — LM training through ``launch.train.train_loop`` on the
              card, one model at a time: qwen2-1.5b (28 layers, bf16, full
              remat, attention on B6) and mamba2-370m (48 layers, bf16,
@@ -426,6 +444,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -526,6 +545,8 @@ STREAM_RTOL = 2e-4  # streamed digital vs ideal STHC conv (the reference test's 
 TIE = 1e-4  # top-two logits this close (relative to their scale) may break either way
 CLASSIFY_BATCH = 16  # clips per batch, as benchmarks/accuracy.py evaluates
 CLASSIFY_REPS = 7  # timed batches per route, after one warm-up
+C3D_BATCH = 128  # clips a C3D classify call: the benchmark cell c3d-clips sends 128
+C3D_REPS = 3  # timed C3D classify calls, after one warm-up
 STREAM_FRAMES = 512  # frames of each of the four long clips
 # the training phase: the reference's recipe (benchmarks/accuracy.py) and
 # its bounds: digital and spectral gradients of one step (relative L2),
@@ -623,9 +644,8 @@ def _ptxas_by_function(log: str) -> list[dict]:
         elif cur is not None and "spill stores" in ln and props == cur["function"]:
             nums = [int(w) for w in ln.replace(",", " ").split() if w.isdigit()]
             cur["stack_bytes"], cur["spill_store_bytes"], cur["spill_load_bytes"] = nums[:3]
-        elif cur is not None and "registers" in ln:
-            words = ln.replace(",", " ").split()
-            cur["registers"] = int(words[words.index("registers") - 1])
+        elif cur is not None and (used := re.search(r"Used (\d+) registers", ln)):
+            cur["registers"] = int(used.group(1))  # other lines may name registers (setmaxnreg notes)
     names = _demangle([f["function"] for f in funcs])
     for f in funcs:
         f["function"] = names[f["function"]]
@@ -726,7 +746,8 @@ def check_flash_build(flash_kernel, so_path: str) -> dict:
 def check_conv3d_build(so_path: str, warnings: list[str]) -> dict | None:
     """B4's tensor-core kernel issues warpgroup tensor-core MMAs (HGMMA,
     3xTF32 wgmma) and asynchronous copies (UTMALDG: TMA tensor-map loads
-    of x; UBLKCP: bulk copies of B) in its SASS, and ptxas warned of no
+    of x; UBLKCP: bulk copies of B) in its SASS, its two implicit-GEMM
+    kernels (BN 64 and 128) HGMMA and UTMALDG, and ptxas warned of no
     wgmma serialization for the library."""
     serial = [ln for ln in warnings if "wgmma" in ln and "serializ" in ln]
     if serial:
@@ -740,7 +761,12 @@ def check_conv3d_build(so_path: str, warnings: list[str]) -> dict | None:
         print(f"build: conv3d SASS {f}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
     if len(tc) != 1 or not all(c["HGMMA"] and c["UTMALDG"] and c["UBLKCP"] for c in tc.values()):
         raise AssertionError(f"the conv3d tensor-core kernel lacks wgmma or asynchronous copies: {tc}")
-    return tc
+    ig = {f: c for f, c in counts.items() if "conv3d_igemm_kernel" in f}
+    for f, c in ig.items():
+        print(f"build: conv3d SASS {f}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+    if len(ig) != 2 or not all(c["HGMMA"] and c["UTMALDG"] for c in ig.values()):
+        raise AssertionError(f"the conv3d implicit-GEMM kernels (BN 64, 128) lack wgmma or TMA loads: {ig}")
+    return tc | ig
 
 
 def phase_kernels(kernel, ref, seed: int, launches: dict) -> list[dict]:
@@ -3276,7 +3302,7 @@ def _conv_row(tag, x, w, launches, rtol, reps=20, want_route=None) -> dict:
     del got, want
     ms = _time_ms(lambda: conv_kernel.conv3d_cuda(x, w), reps)
     plain_ms = _time_ms(lambda: conv_ref.conv3d_ref(x, w), max(3, reps // 4))
-    source = "conv3d_tc.cu" if route == "wgmma" else "conv3d.cu"
+    source = {"wgmma": "conv3d_tc.cu", "igemm": "conv3d_igemm.cu", "fma": "conv3d.cu"}[route]
     return {
         "name": f"conv3d{tag}",
         "route": "cuda",
@@ -3560,6 +3586,141 @@ def phase_classify(seed: int, stmul_kernel) -> tuple[dict, list[dict]]:
         "library_ms": lib_ms,
         "shape": {"B": CLASSIFY_BATCH, "O": 9, "C": 1, "F": F},
     })
+    return report, rows
+
+
+def phase_c3d(seed: int, card: str) -> tuple[dict, list[dict]]:
+    """C3D at its published widths on B4's ``igemm`` route, at the
+    benchmark cell's 128 clips a call; returns the report and a
+    ``kernel:`` row per layer."""
+    import torch.nn.functional as F
+
+    from repro_torch import configs
+    from repro_torch.core.spectral_conv import full_precision
+    from repro_torch.kernels.conv3d import kernel as conv_kernel
+    from repro_torch.kernels.conv3d import ref as conv_ref
+    from repro_torch.launch.serve import C3DClassifierServer
+    from repro_torch.models import c3d
+
+    sys.path.insert(0, os.path.join(ROOT, "portbench"))
+    from pbench import c3d_cost  # the cell's yardstick: b4_roofline divides these bounds
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get_config("c3d-sports1m")
+    with open(os.path.join(ROOT, "portbench", "configs", "c3d-sports1m.json")) as fh:
+        m = json.load(fh)["model"]
+    layers = c3d_cost.convs(m)  # (name, C, O, H, W, T), the border's output = input extent
+    if [tuple(layer[:3]) for layer in layers] != [tuple(c) for c in cfg.convs()]:
+        raise AssertionError("the benchmark's C3D layers differ from configs.c3d_sports1m")
+    gen = torch.Generator("cuda").manual_seed(seed)
+    B = C3D_BATCH
+    report = {"batch": B, "layers": {}}
+
+    # the served call, counted: one warm-up, C3D_REPS timed, then one call
+    # with B4's counters at 0 just before it
+    params = c3d.init_params(cfg, gen, device="cuda")
+    server = C3DClassifierServer(params, device="cuda")
+    clips = torch.rand((B, cfg.in_channels, cfg.height, cfg.width, cfg.frames), generator=gen, device="cuda")
+    server.classify(clips)
+    lat = []
+    for _ in range(C3D_REPS):
+        t1 = time.perf_counter()
+        server.classify(clips)
+        lat.append(time.perf_counter() - t1)
+    conv_kernel.reset_launches()
+    server.classify(clips)
+    by_route = dict(conv_kernel.conv3d_cuda.route_launches)
+    med = float(np.median(lat))
+    report |= {"classify_latency_s": lat, "frames_per_s": B * cfg.frames / med, "route_launches": by_route,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"c3d: classify {B} clips median {med * 1e3:.2f} ms (n={len(lat)}), "
+          f"{B * cfg.frames / med:.1f} frames/s; B4 launches by route {by_route} [{card}]")
+    if by_route != {"wgmma": 0, "igemm": len(layers), "fma": 0}:
+        raise AssertionError(f"C3D's classify launched B4 {by_route}, want igemm {len(layers)} and no other")
+    del server, params, clips
+    torch.cuda.empty_cache()
+
+    # each layer as the trunk calls it: channels-last, border 1, bias, ReLU
+    # (conv1a reads the clips through a channels-last view, as the trunk does)
+    rows = []
+    for name, C, O, H, W, T in layers:
+        shape = (B, C, H, W, T) if C == cfg.in_channels else (B, H, W, T, C)
+        x = torch.rand(shape, generator=gen, device="cuda")
+        x = x.permute(0, 2, 3, 4, 1) if C == cfg.in_channels else x
+        w = torch.randn((O, C, 3, 3, 3), generator=gen, device="cuda") * (2.0 / (C * 27)) ** 0.5
+        b = torch.randn((O,), generator=gen, device="cuda") * 0.01
+        opts = dict(pad=1, bias=b, relu=True, channels_last=True)
+        route = conv_kernel.route((B, C, H + 2, W + 2, T + 2), tuple(w.shape), x.dtype)
+        if route != "igemm":
+            raise AssertionError(f"B4 C3D {name} routed to {route}, not igemm")
+        xn = x.permute(0, 4, 1, 2, 3)  # (B, C, H, W, T) view for cuDNN
+
+        def library(xn=xn, w=w, b=b):  # one cuDNN call and ReLU in place, TF32 off
+            with full_precision():
+                return F.conv3d(xn, w, b, padding=1).relu_()
+
+        got = conv_kernel.conv3d_cuda(x, w, **opts)
+        want = conv_ref.conv3d_ref(x, w, **opts)
+        rel = _rel_l2(got, want)
+        mx = float(torch.max(torch.abs(got - want)))
+        finite = bool(torch.isfinite(got).all())
+        del got
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            one_pass = F.conv3d(xn, w, b, padding=1).relu_().permute(0, 2, 3, 4, 1)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        rel_tf32 = _rel_l2(one_pass, want)
+        del one_pass, want
+        flops, nbytes = c3d_cost.conv_cost(B, C, O, H, W, T, 3)
+        bound_s = max(flops / c3d_cost.PEAK_TF32, nbytes / c3d_cost.HBM_BW)
+        by = "bytes" if nbytes / c3d_cost.HBM_BW >= flops / c3d_cost.PEAK_TF32 else "operations"
+        bound3_s = max(3 * flops / c3d_cost.PEAK_TF32, nbytes / c3d_cost.HBM_BW)
+        print(f"c3d: B4 {name} x {tuple(x.shape)} w {tuple(w.shape)} route igemm vs plain: rel L2 {rel:.3g} "
+              f"(one TF32 pass {rel_tf32:.3g}; bound {CONV_RTOL:g}), max abs {mx:.3g} [{card}]")
+        if not (rel <= CONV_RTOL and finite):
+            raise AssertionError(f"B4 C3D {name} disagrees with its plain version (rel L2 {rel:.3g})")
+        if not rel_tf32 > CONV_RTOL:
+            raise AssertionError(f"one TF32 pass meets the bound at {name} ({rel_tf32:.3g}): it tells nothing")
+        ms = _time_ms(lambda: conv_kernel.conv3d_cuda(x, w, **opts), 5)
+        plain_ms = _time_ms(lambda: conv_ref.conv3d_ref(x, w, **opts), 3)
+        lib_ms = _time_ms(library, 3)
+        share = bound_s * 1e3 / ms
+        print(f"c3d: B4 {name} {ms:.3f} ms, plain {plain_ms:.3f}, library (cuDNN, TF32 off) {lib_ms:.3f}; "
+              f"bound {bound_s * 1e3:.3f} ms ({by}, TF32 dense), {bound3_s * 1e3:.3f} at three passes; "
+              f"roofline {share:.1%} [{card}]")
+        report["layers"][name] = {"rel_l2": rel, "rel_l2_one_tf32_pass": rel_tf32, "ms": ms, "plain_ms": plain_ms,
+                                  "library_ms": lib_ms, "bound_ms": bound_s * 1e3, "roofline": share}
+        rows.append({
+            "name": f"conv3d_c3d_{name}[{B}]",
+            "route": "cuda",
+            "b4_route": route,
+            "source": "src/repro_torch/kernels/conv3d/csrc/conv3d_igemm.cu",
+            "replaces": "src/repro/kernels/conv3d/kernel.py:41",
+            "launches": by_route["igemm"],
+            "max_abs_err": mx,
+            "max_err": mx,
+            "rel_l2": rel,
+            "ms": ms,
+            "kernel_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_s * 1e3,
+            "bound_by": by,
+            "bound_3xtf32_ms": bound3_s * 1e3,
+            "library_ms": lib_ms,
+            "shape": {"x": list(x.shape), "w": list(w.shape), "dtype": "float32", "pad": 1,
+                      "bias": True, "relu": True, "channels_last": True},
+        })
+        del x, xn, w, b
+        torch.cuda.empty_cache()
+    total = sum(r["ms"] for r in rows)
+    bound = sum(r["bound_ms"] for r in rows)
+    report["conv_ms"], report["bound_ms"] = total, bound
+    report["seconds"] = time.perf_counter() - t0
+    print(f"c3d: eight layers {total:.2f} ms a call against a bound of {bound:.2f} ms ({bound / total:.1%}); "
+          f"phase {report['seconds']:.1f} s [{card}]")
     return report, rows
 
 
@@ -5303,6 +5464,13 @@ def main() -> int:
     report["classify"], classify_rows = phase_classify(args.seed, kernel)
     rows += classify_rows
     mark("classify")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    report["c3d"], c3d_rows = phase_c3d(args.seed, card)
+    rows += c3d_rows
+    mark("c3d")
     report["train"], train_rows = phase_train(args.seed, kernel)
     rows += train_rows
     mark("train")
@@ -5312,10 +5480,6 @@ def main() -> int:
     mark("replica")
     report["ckpt"] = phase_ckpt(args.seed)
     mark("ckpt")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
     report["mesh"], mesh_rows = phase_mesh(kernel, ref, args.seed, card)
     rows += mesh_rows
     mark("mesh")

@@ -12,9 +12,11 @@ import dataclasses
 import importlib
 
 PORTED = (
-    "arctic_480b", "deepseek_v2_lite_16b", "granite_8b", "internvl2_2b", "llama3_405b",
+    "arctic_480b", "c3d_sports1m", "deepseek_v2_lite_16b", "granite_8b", "internvl2_2b", "llama3_405b",
     "mamba2_370m", "nemotron_4_15b", "qwen2_1_5b", "sthc_kth", "whisper_tiny", "zamba2_2_7b",
 )
+# the video models among them; the rest are language models
+VIDEO = ("c3d_sports1m", "sthc_kth")
 
 
 def _normalize(name: str) -> str:

@@ -147,6 +147,35 @@ class _SegmentUploader:
         return out
 
 
+class _ClipUploader(threading.local):
+    """One :class:`_SegmentUploader` per thread and device: host clips
+    reach the card through its two reused pinned buffers and an
+    asynchronous copy, not a pageable one."""
+
+    def __init__(self):
+        self.by_device: dict[torch.device, _SegmentUploader] = {}
+
+    def __call__(self, x, device: torch.device) -> Tensor:
+        up = self.by_device.get(device)
+        if up is None:
+            up = self.by_device[device] = _SegmentUploader(device)
+        return up(as_tensor(x, "cpu"))
+
+
+_UPLOAD = _ClipUploader()
+
+
+def stage_clips(x, device: torch.device, dtype: torch.dtype) -> Tensor:
+    """Clips as a tensor on ``device`` in ``dtype``; float32 host clips
+    bound for the card are staged through pinned buffers (the classifier
+    servers' upload, shared by the hybrid and C3D)."""
+    device = torch.device(device)
+    host = isinstance(x, np.ndarray) or (isinstance(x, Tensor) and x.device.type == "cpu")
+    if host and device.type == "cuda" and dtype == torch.float32:
+        return _UPLOAD(x, device)
+    return as_tensor(x, device, dtype)
+
+
 def _nbytes(t: Tensor | None) -> int:
     return 0 if t is None else int(t.numel()) * int(t.element_size())
 

@@ -50,7 +50,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.core import fidelity, spectral_conv
-from repro_torch.core.engine import _SegmentUploader, as_tensor
+from repro_torch.core.engine import as_tensor, stage_clips
 from repro_torch.core.sthc import STHC, STHCConfig
 from repro_torch.kernels.conv3d import ops as conv3d_ops
 
@@ -181,33 +181,10 @@ def _sthc_required(sthc: STHC | None) -> STHC:
     return sthc
 
 
-class _ClipUploader(threading.local):
-    """One :class:`~repro_torch.core.engine._SegmentUploader` per thread
-    and device: host clips reach the card through its two reused pinned
-    buffers and an asynchronous copy, not a pageable one."""
-
-    def __init__(self):
-        self.by_device: dict[torch.device, _SegmentUploader] = {}
-
-    def __call__(self, x, device: torch.device) -> Tensor:
-        up = self.by_device.get(device)
-        if up is None:
-            up = self.by_device[device] = _SegmentUploader(device)
-        return up(as_tensor(x, "cpu"))
-
-
-_UPLOAD = _ClipUploader()
-
-
 def clips_to_device(params: HybridCNN, x) -> Tensor:
-    """Clips as a tensor on the parameters' device and in their dtype;
-    float32 host clips bound for the card are staged through pinned
-    buffers."""
-    device, dtype = params.conv_w.device, params.conv_w.dtype
-    host = isinstance(x, np.ndarray) or (isinstance(x, Tensor) and x.device.type == "cpu")
-    if host and device.type == "cuda" and dtype == torch.float32:
-        return _UPLOAD(x, device)
-    return as_tensor(x, device, dtype)
+    """Clips as a tensor on the parameters' device and in their dtype
+    (:func:`~repro_torch.core.engine.stage_clips`)."""
+    return stage_clips(x, params.conv_w.device, params.conv_w.dtype)
 
 
 def conv_layer(

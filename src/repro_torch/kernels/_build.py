@@ -130,14 +130,20 @@ def stream() -> int:
 _count_lock = threading.Lock()
 
 
-def count(fn) -> None:
-    """Add one to a wrapper's ``launches`` counter."""
+def count(fn, route: str | None = None) -> None:
+    """Add one to a wrapper's ``launches`` counter and, for a wrapper with
+    several routes, to its ``route_launches[route]``."""
     with _count_lock:
         fn.launches += 1
+        if route is not None:
+            fn.route_launches[route] += 1
 
 
 def reset(*fns) -> None:
-    """Set the given wrappers' ``launches`` counters to 0."""
+    """Set the given wrappers' ``launches`` counters (and per-route
+    counters) to 0."""
     with _count_lock:
         for fn in fns:
             fn.launches = 0
+            if hasattr(fn, "route_launches"):
+                fn.route_launches = dict.fromkeys(fn.route_launches, 0)

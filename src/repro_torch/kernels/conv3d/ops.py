@@ -27,44 +27,69 @@ from repro_torch.launch import op_analysis
 Tensor = torch.Tensor
 
 
+def _padded_shape(x: Tensor, pad: int, channels_last: bool) -> tuple[int, ...]:
+    """x's (B, C, H, W, T) extent with its zero border."""
+    B, C, H, W, T = (x.shape[i] for i in ((0, 4, 1, 2, 3) if channels_last else range(5)))
+    return (B, C, H + 2 * pad, W + 2 * pad, T + 2 * pad)
+
+
 @op_analysis.counted_kernel(
-    "conv3d", lambda x, w: dict(x_shape=tuple(x.shape), w_shape=tuple(w.shape), dtype=x.dtype)
+    "conv3d",
+    lambda x, w, pad=0, bias=None, relu=False, channels_last=False: dict(
+        x_shape=_padded_shape(x, pad, channels_last), w_shape=tuple(w.shape), dtype=x.dtype
+    ),
 )
-def _forward(x: Tensor, w: Tensor) -> Tensor:
+def _forward(x: Tensor, w: Tensor, pad: int = 0, bias: Tensor | None = None, relu: bool = False,
+             channels_last: bool = False) -> Tensor:
+    opts = dict(pad=pad, bias=bias, relu=relu, channels_last=channels_last)
     if x.device.type == "cuda":
+        if pad or bias is not None or relu or channels_last:  # the igemm route lays x out itself
+            return _kernel.conv3d_cuda(x, w, **opts)
         return _kernel.conv3d_cuda(x.contiguous(), w.contiguous())
     if x.device.type == "cpu":
-        return _ref.conv3d_ref(x, w)
+        return _ref.conv3d_ref(x, w, **opts)
     if x.device.type == "meta":
-        B, _, H, W, T = x.shape
+        B, _, H, W, T = _padded_shape(x, pad, channels_last)
         O, _, kh, kw, kt = w.shape
-        return x.new_empty((B, O, H - kh + 1, W - kw + 1, T - kt + 1))
+        out = (B, O, H - kh + 1, W - kw + 1, T - kt + 1)
+        return x.new_empty((out[0], *out[2:], out[1]) if channels_last else out)
     raise ValueError(f"conv3d has no kernel for device {x.device}")
 
 
 class _Conv3d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w):
+    def forward(ctx, x, w, bias, pad, relu, channels_last):
         ctx.save_for_backward(x, w)
-        return _forward(x, w)
+        ctx.valid = not (pad or bias is not None or relu or channels_last)
+        return _forward(x, w, pad, bias, relu, channels_last)
 
     @staticmethod
     def backward(ctx, g):
+        if not ctx.valid:
+            raise NotImplementedError("conv3d's backward takes a valid correlation only: no border, "
+                                      "bias, ReLU or channels-last layout")
         x, w = ctx.saved_tensors
         leaves = [t.detach().requires_grad_(need) for t, need in zip((x, w), ctx.needs_input_grad)]
         wanted = [t for t in leaves if t.requires_grad]
         with torch.enable_grad(), full_precision(), op_analysis.bucket("conv3d_bwd(plain)"):
             grads = iter(torch.autograd.grad(_ref.conv3d_ref(*leaves), wanted, g))
-        return tuple(next(grads) if t.requires_grad else None for t in leaves)
+        return tuple(next(grads) if t.requires_grad else None for t in leaves) + (None,) * 4
 
 
-def conv3d(x: Tensor, w: Tensor) -> Tensor:
+def conv3d(x: Tensor, w: Tensor, *, pad: int = 0, bias: Tensor | None = None,
+           relu: bool = False, channels_last: bool = False) -> Tensor:
     """Direct valid 3-D correlation.
 
     x: (B, C, H, W, T), w: (O, C, kh, kw, kt) → (B, O, OH, OW, OT).  The
     reference's ``block_oh`` / ``block_ot`` TPU tiles are not taken: the
-    kernel chooses its own tile (``kernel.plan``)."""
-    return _Conv3d.apply(x, w)
+    kernel chooses its own tile (``kernel.plan``).  A digital 3-D CNN's
+    layer (C3D's) passes ``pad`` (zero voxels on each side of H, W and
+    T), ``bias`` (O,), ``relu`` and ``channels_last`` (x (B, H, W, T, C)
+    → (B, OH, OW, OT, O)); on the card only the ``igemm`` route
+    (``kernel.route``) takes them, and it raises for shapes sent
+    elsewhere.  They are forward-only (C3D is served for inference): a
+    backward through them raises."""
+    return _Conv3d.apply(x, w, bias, int(pad), bool(relu), bool(channels_last))
 
 
 def conv3d_strips(x: Tensor, w: Tensor, strip_h: int = 32) -> Tensor:

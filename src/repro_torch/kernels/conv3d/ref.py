@@ -22,10 +22,23 @@ import torch.nn.functional as F
 from repro_torch.core.spectral_conv import full_precision
 
 
-def conv3d_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (B, C, H, W, T), w: (O, C, kh, kw, kt) → (B, O, H', W', T')."""
+def conv3d_ref(x: torch.Tensor, w: torch.Tensor, pad: int = 0, bias: torch.Tensor | None = None,
+               relu: bool = False, channels_last: bool = False) -> torch.Tensor:
+    """x: (B, C, H, W, T), w: (O, C, kh, kw, kt) → (B, O, H', W', T').
+
+    With ``pad`` x is read with that many zero voxels on each side of H,
+    W and T, ``bias`` (O,) is added and ``relu`` applied in float32;
+    with ``channels_last`` x is (B, H, W, T, C) and the result (B, H',
+    W', T', O), as the kernel's ``igemm`` route lays them out."""
+    xv = x.permute(0, 4, 1, 2, 3) if channels_last else x
     with full_precision():
-        return F.conv3d(x.float(), w.float()).to(x.dtype)
+        y = F.conv3d(xv.float(), w.float(), padding=int(pad))
+        if bias is not None:
+            y = y + bias.float()[None, :, None, None, None]
+        if relu:
+            y = F.relu(y)
+    y = y.to(x.dtype)
+    return y.permute(0, 2, 3, 4, 1).contiguous() if channels_last else y
 
 
 def tf32_split(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -48,7 +48,9 @@ the conv layer is an STHC whose grating is recorded once, at
 construction, and every ``classify`` runs one correlate (kernel B1 on
 the card) and the digital head; ``classify_stream`` streams long clips
 through the coherence-window overlap-save path and classifies each
-training-length segment.
+training-length segment.  :class:`C3DClassifierServer` serves C3D, the
+digital 3-D CNN the paper sets its correlator against, through the same
+``classify`` entry, its convolutions on kernel B4.
 
 :class:`LMServer` serves a language model greedily: one ``prefill`` of
 the prompt batch, then one ``decode_step`` per new token: Mamba-2,
@@ -87,11 +89,13 @@ from repro_torch.core.engine import (
     clip_keys_for,
     host_stream,
     stack_streams,
+    stage_clips,
     staged_to_device,
 )
 from repro_torch.core.fidelity import FidelityPipeline
 from repro_torch.core.sthc import STHC, STHCConfig
 from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import c3d
 from repro_torch.launch.resilience import (
     BatchExecutionError,
     DeadlineExceeded,
@@ -1403,6 +1407,39 @@ class HybridClassifierServer:
             preds = torch.argmax(self._head(segs), dim=-1).reshape(n_seg, -1)
         with tracing.span("classify.readback"):
             return preds.T.cpu().numpy()  # (B, n_seg)
+
+
+class C3DClassifierServer:
+    """Serve C3D, the digital 3-D CNN (``models/c3d.py``), on the classifier
+    path: the same ``classify(clips)`` entry, pinned upload and readback as
+    :class:`HybridClassifierServer`, the trunk's eight convolutions on
+    kernel B4 (its ``igemm`` route on the card) where the hybrid records
+    and correlates an STHC grating.
+
+    ``params`` is the :class:`~repro_torch.models.c3d.C3D` to serve
+    (``c3d.init_params``, or loaded by name); it is moved to ``device``
+    (None = the card)."""
+
+    def __init__(self, params: c3d.C3D, device=None):
+        self.device = resolve_device(device)
+        self.cfg = params.cfg
+        self.params = params.to(self.device)
+
+    def _head(self, features: torch.Tensor) -> torch.Tensor:
+        return c3d.head(self.params, features)
+
+    @torch.no_grad()
+    def classify(self, clips) -> np.ndarray:
+        """Class predictions (B,) of clips (B, C, H, W, frames), numpy or
+        a tensor."""
+        with tracing.span("classify.upload"):
+            x = stage_clips(clips, self.device, torch.float32)
+        with tracing.span("classify.conv"):
+            features = c3d.trunk(self.params, x)
+        with tracing.span("classify.head"):
+            preds = torch.argmax(self._head(features), dim=-1)
+        with tracing.span("classify.readback"):
+            return preds.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -25,3 +25,7 @@ if os.environ.get("REPRO_DEBUG_NANS") == "1":
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "card: needs a CUDA card; skips on a host without one")

@@ -55,6 +55,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONV_RTOL = 1e-5  # relative L2 that chip_smoke.py holds B4 to in float32
 BATCH = ((16, 1, 60, 80, 16), (9, 1, 30, 40, 8))  # the serving batch
 STREAMS = ((4, 1, 60, 80, 512), (9, 1, 30, 40, 8))  # four 512-frame streams
+# C3D's convolutions (conv1a ... conv5b): input channels, filters, side, frames
+C3D_LAYERS = [(3, 64, 112, 16), (64, 128, 56, 16), (128, 256, 28, 8), (256, 256, 28, 8),
+              (256, 512, 14, 4), (512, 512, 14, 4), (512, 512, 7, 2), (512, 512, 7, 2)]
 
 # the reference test's sweep (b 1–2, c 1–4, o 1–6, k 1–3, h 6–14, t 4–10;
 # x (b, c, h, h+2, t), w (o, c, k, k, min(k, t))), enumerated instead of
@@ -350,7 +353,12 @@ def test_tf32_split_rounds_as_the_kernel():
     + [
         ((b, c, h, h + 2, t), (o, c, k, k, min(k, t)), torch.float32, "fma")
         for b, c, o, k, h, t in SWEEP
-    ],
+    ]
+    + [  # C3D's eight layers, their inputs with the one-voxel border
+        ((2, c, h + 2, h + 2, t + 2), (o, c, 3, 3, 3), torch.float32, "igemm")
+        for c, o, h, t in C3D_LAYERS
+    ]
+    + [((2, 64, 58, 58, 18), (128, 64, 3, 3, 3), torch.bfloat16, "fma")],  # C3D's conv2a, bf16
 )
 def test_route_sends_the_main_shapes_to_tensor_cores(x_shape, w_shape, dtype, want):
     assert t_kernel.route(x_shape, w_shape, dtype) == want

@@ -52,7 +52,7 @@ from repro_torch.models import model_api  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LM_ARCHS = [a for a in t_configs.PORTED if a != "sthc_kth"]
+LM_ARCHS = [a for a in t_configs.PORTED if a not in t_configs.VIDEO]
 # one arch per family, and the loader that carries its tree across
 FAMILIES = {
     "qwen2-1.5b": interop.transformer_params_from_numpy,

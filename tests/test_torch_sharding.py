@@ -120,7 +120,7 @@ def test_tree_specs_match_reference():
 
 # -- sharded training state ------------------------------------------------------
 
-LM_ARCHS = [a for a in t_configs.PORTED if a != "sthc_kth"]
+LM_ARCHS = [a for a in t_configs.PORTED if a not in t_configs.VIDEO]
 # (mesh axes, multi-pod rules)
 MESHES = {
     "2x2": (dict(data=2, model=2), False),

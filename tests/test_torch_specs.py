@@ -23,7 +23,7 @@ from repro_torch.launch import train as t_train  # noqa: E402
 from repro_torch.models import model_api  # noqa: E402
 from repro_torch.optim import AdamWConfig, adamw_init  # noqa: E402
 
-LM_ARCHS = [a for a in t_configs.PORTED if a != "sthc_kth"]
+LM_ARCHS = [a for a in t_configs.PORTED if a not in t_configs.VIDEO]
 DTYPES = {jnp.dtype("int32"): torch.int32, jnp.dtype("float32"): torch.float32,
           jnp.dtype("bfloat16"): torch.bfloat16}
 N_MICRO_ATOL = 1e-5
